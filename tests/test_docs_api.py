@@ -67,22 +67,30 @@ def test_doc_path_resolves(path):
         obj = getattr(obj, attr)
 
 
-def test_readme_usage_snippet_executes():
-    """The README's Usage code block, executed nearly verbatim (grid.json
-    swapped for the reference fixture, image for a synthetic capture)."""
+def test_readme_usage_snippet_executes(tmp_path, monkeypatch):
+    """The README's Usage code block, executed nearly verbatim: grid.json
+    comes from the README's own `cli gridgen` command, the image is a
+    synthetic capture of that grid."""
+    from tpu_inspect import cli
+    from tpu_inspect.synthetic import make_mold_image
+
+    monkeypatch.chdir(tmp_path)
+    cli.main(["gridgen", "--base", "251,232,316,315", "--units", "4x6",
+              "--blocks", "2x1", "--unit-space", "133,136",
+              "--block-space", "252,0", "--out", "grid.json"])
+
     from tpu_inspect.config import SegmentationParams, DefectParams
     from tpu_inspect.persistence import load_grid
     from tpu_inspect.engine import inspect_image
-    from tpu_inspect.synthetic import make_mold_image
 
-    doc = load_grid("/root/reference/grid.json")
+    doc = load_grid("grid.json")
     image = make_mold_image(doc.grid_params, (3000, 4096), seed=3,
                             defect_rate=0.3)
     seg_res, insp = inspect_image(image, doc.grid_params,
                                   SegmentationParams(), DefectParams(),
                                   exclusions=doc.exclusions)
     assert insp.verdicts.dtype == bool
-    assert insp.verdicts.shape == (doc.grid_params.num_units,)
+    assert insp.verdicts.shape == (doc.grid_params.num_units,) == (48,)
     assert seg_res.masks.shape[0] == doc.grid_params.num_units
 
 

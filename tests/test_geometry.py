@@ -1,8 +1,8 @@
 """Grid-indexing and exclusion geometry tests.
 
-The key fixture is /root/reference/grid.json: its 48 boxes must be exactly
-reproducible from its metadata via the indexing formula
-(indexing_ui.py:2184-2191).
+The key fixture is the reference tool's grid.json (``reference_dir``): its
+48 boxes must be exactly reproducible from its metadata via the indexing
+formula (indexing_ui.py:2184-2191).
 """
 
 import json
@@ -20,11 +20,8 @@ from tpu_inspect.geometry import (
 from tpu_inspect.persistence import load_grid
 from tpu_inspect.synthetic import sample_grid_params
 
-REF_GRID = "/root/reference/grid.json"
-
-
-def test_sample_grid_reproduced_exactly():
-    doc = load_grid(REF_GRID)
+def test_sample_grid_reproduced_exactly(reference_dir):
+    doc = load_grid(reference_dir / "grid.json")
     params = doc.grid_params
     assert params is not None
     boxes = grid_boxes(params)
@@ -32,8 +29,8 @@ def test_sample_grid_reproduced_exactly():
     assert len(boxes) == 48
 
 
-def test_sample_grid_params_match_metadata():
-    with open(REF_GRID) as f:
+def test_sample_grid_params_match_metadata(reference_dir):
+    with open(reference_dir / "grid.json") as f:
         meta = json.load(f)["metadata"]
     p = sample_grid_params()
     assert p.units_x == meta["units_x"] and p.units_y == meta["units_y"]

@@ -141,146 +141,11 @@ def test_largest_component_random_ties_match_cv2():
         np.testing.assert_array_equal(np.asarray(mask[0]), labels == best)
 
 
-def test_tile_seeded_labeling_exact():
-    """Whole-image-class labeling: the fixpoint seeded from per-tile
-    labelings (ops/cc.py _tile_seeded_init) must converge to exactly the
-    classic raster-first labels, including components snaking across many
-    tiles and fragments whose tile-local first pixel is not the global
-    first."""
-    import jax.numpy as jnp
-
-    from tpu_inspect.ops import cc
-
-    rng = np.random.RandomState(7)
-    fg = rng.rand(2, 37, 53) > 0.55
-    # serpentine spanning all tiles
-    fg[0, ::6, :] = True
-    fg[0, 3::6, ::2] = False
-    fg[1, :, ::7] = True
-    classic = np.asarray(cc.label_components(jnp.asarray(fg)))
-    for tile in [(8, 16), (16, 8), (37, 53), (5, 5)]:
-        init = cc._tile_seeded_init(jnp.asarray(fg), tile_hw=tile)
-        seeded = np.asarray(cc._xla_label_fixpoint(jnp.asarray(fg), init))
-        np.testing.assert_array_equal(seeded, classic, err_msg=f"tile={tile}")
-
-
-def test_tile_seeded_init_is_valid_upper_bound():
-    """Each seeded init label must be a member pixel's raster index of the
-    same fragment (>= the final label, < h*w, bg = sentinel)."""
-    import jax.numpy as jnp
-
-    from tpu_inspect.ops import cc
-
-    rng = np.random.RandomState(8)
-    fg = rng.rand(1, 21, 30) > 0.5
-    init = np.asarray(cc._tile_seeded_init(jnp.asarray(fg), tile_hw=(6, 7)))
-    final = np.asarray(cc.label_components(jnp.asarray(fg)))
-    h, w = fg.shape[1:]
-    assert (init[~fg] == cc._BIG).all()
-    assert (init[fg] < h * w).all()
-    assert (init[fg] >= final[fg]).all()
-    # every init label is itself a foreground pixel of the same component
-    ys, xs = np.divmod(init[fg], w)
-    assert fg[0][ys, xs].all()
-    assert (final[0][ys, xs] == final[fg]).all()
-
-
-class TestTiledLargestComponentStats:
-    """largest_component_sums_tiled (per-tile sorts + boundary-ring
-    aggregation) vs the global-sort path, incl. cv2 tie-break parity."""
-
-    def _check(self, fg, tiles=((8, 16), (16, 8), (5, 5), (64, 64))):
-        import jax.numpy as jnp
-
-        from tpu_inspect.ops import cc
-
-        fgj = jnp.asarray(fg)
-        labels = cc.label_components(fgj)
-        ref = tuple(np.asarray(v) for v in cc.largest_component_sums(fgj))
-        for tile in tiles:
-            got = tuple(
-                np.asarray(v)
-                for v in cc.largest_component_sums_tiled(
-                    fgj, labels, tile_hw=tile
-                )
-            )
-            for g, r, name in zip(
-                got, ref, ["mask", "area", "sx", "sy", "has_fg"]
-            ):
-                np.testing.assert_array_equal(
-                    g, r, err_msg=f"tile={tile} field={name}"
-                )
-
-    def test_random(self):
-        rng = np.random.RandomState(17)
-        self._check(rng.rand(3, 37, 53) > 0.55)
-
-    def test_traceable_under_jit(self):
-        # the defect path calls this inside a jitted function; a host-side
-        # int()/concretization anywhere in the tiled stats breaks tracing
-        import functools
-
-        import jax
-        import jax.numpy as jnp
-
-        from tpu_inspect.ops import cc
-
-        rng = np.random.RandomState(18)
-        fg = jnp.asarray(rng.rand(2, 23, 31) > 0.5)
-        labels = cc.label_components(fg)
-        f = jax.jit(
-            functools.partial(cc.largest_component_sums_tiled, tile_hw=(8, 16))
-        )
-        got = tuple(np.asarray(v) for v in f(fg, labels))
-        ref = tuple(np.asarray(v) for v in cc.largest_component_sums(fg))
-        for g, r in zip(got, ref):
-            np.testing.assert_array_equal(g, r)
-
-    def test_serpentine_spans_all_tiles(self):
-        fg = np.zeros((1, 40, 60), bool)
-        fg[0, ::5, :] = True
-        fg[0, 2::10, -1] = True
-        fg[0, 7::10, 0] = True
-        self._check(fg)
-
-    def test_equal_area_tie_across_tiles(self):
-        # two 5x4 rectangles in different tiles; cv2 order = min block rank
-        fg = np.zeros((1, 30, 40), bool)
-        fg[0, 20:25, 2:6] = True    # lower-left, earlier block? no: later row
-        fg[0, 3:8, 30:34] = True    # upper-right
-        self._check(fg)
-
-    def test_interior_vs_ring_tie(self):
-        # equal-area components: one interior to a tile, one crossing tiles
-        fg = np.zeros((1, 32, 32), bool)
-        fg[0, 2:4, 2:6] = True      # 8 px interior (for 16x16 tiles)
-        fg[0, 14:18, 20:22] = True  # 8 px straddling the tile boundary
-        self._check(fg, tiles=((16, 16),))
-
-    def test_empty_and_full_units(self):
-        fg = np.zeros((3, 20, 24), bool)
-        fg[1] = True
-        fg[2, 5, 5] = True
-        self._check(fg)
-
-    def test_component_visits_tile_only_via_ring(self):
-        # a component entering a tile by a single ring pixel
-        fg = np.zeros((1, 20, 20), bool)
-        fg[0, 9, :] = True          # horizontal line crossing tiles (10,10)
-        fg[0, 10, 0] = True         # one pixel below, conn8 to the line
-        self._check(fg, tiles=((10, 10),))
-
-    def test_single_pixels_everywhere(self):
-        rng = np.random.RandomState(19)
-        fg = rng.rand(2, 25, 31) > 0.93  # sparse specks
-        self._check(fg)
-
-
 def test_filter_and_select_int64_two_level_scan():
     """filter_and_select on a plane large enough to force the int64
     Green's-sum dtype (big >= 2^31) vs cv2 RETR_EXTERNAL semantics — covers
     the two-level int32-block scan that replaces the emulated int64
-    cumsum/cummax (which blew TPU scoped VMEM inside fori_loop chains)."""
+    cumsum/cummax)."""
     import jax.numpy as jnp
 
     h, w = 750, 900  # (nv+1)*2*bias = 677k*4096 >= 2^31 -> int64 branch
@@ -336,8 +201,8 @@ class TestGreenFilterTiled:
         hw = h * w
         fg = jnp.asarray(m > 0)
         ext = exterior_background(fg)
-        fill_labels = cc.label_components(~ext, plan="rc")
-        fg_labels = cc.label_components(fg, plan="rc")
+        fill_labels = cc.label_components(~ext)
+        fg_labels = cc.label_components(fg)
         top = fg & (fg_labels == fill_labels)
         attr, contrib = _vertex_attribution(top, ext, fill_labels)
         bias = 1 << int(np.ceil(np.log2(h + w + 4)))

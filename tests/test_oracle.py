@@ -1,5 +1,6 @@
 """Oracle self-validation: the numpy/cv2 oracle must match the reference's
-own importable pure functions (/root/reference/segmentation.py) exactly.
+own importable pure functions (its segmentation.py, found through the
+``reference_dir`` fixture) exactly.
 
 segmentation.py imports cleanly without Qt (its QImage import is guarded,
 segmentation.py:4-7), so segment_cell / fill_internal_holes / mask_stats are
@@ -7,16 +8,13 @@ directly comparable. _detect_defects_on_pix needs Qt and is validated
 structurally via its cited cv2 call chain plus synthetic cases here.
 """
 
-import sys
+import importlib.util
 
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/reference")
-import segmentation as ref_seg  # noqa: E402
-
-from tpu_inspect.config import DefectParams, SegmentationParams  # noqa: E402
-from tpu_inspect.oracle import (  # noqa: E402
+from tpu_inspect.config import DefectParams, SegmentationParams
+from tpu_inspect.oracle import (
     detect_defects,
     fill_holes,
     inspect_units,
@@ -24,12 +22,23 @@ from tpu_inspect.oracle import (  # noqa: E402
     mask_stats,
     segment_unit,
 )
-from tpu_inspect.synthetic import (  # noqa: E402
+from tpu_inspect.synthetic import (
     crop_units,
     make_mold_image,
     random_blob_mask,
     sample_grid_params,
 )
+
+
+@pytest.fixture(scope="module")
+def ref_seg(reference_dir):
+    """The reference tool's own segmentation module."""
+    spec = importlib.util.spec_from_file_location(
+        "segmentation", reference_dir / "segmentation.py"
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _rand_imgs(n, h=64, w=64, seed=0):
@@ -38,7 +47,7 @@ def _rand_imgs(n, h=64, w=64, seed=0):
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_fill_holes_matches_reference(seed):
+def test_fill_holes_matches_reference(seed, ref_seg):
     mask = random_blob_mask(48, 56, seed=seed, n_blobs=5)
     # punch holes
     rng = np.random.RandomState(seed + 99)
@@ -49,7 +58,7 @@ def test_fill_holes_matches_reference(seed):
     np.testing.assert_array_equal(ours, ref)
 
 
-def test_fill_holes_interior_crop_case():
+def test_fill_holes_interior_crop_case(ref_seg):
     # crop fully inside the mold: foreground touches every border; the only
     # background is internal -> everything fills (segmentation.py:54-55 case)
     mask = np.full((20, 20), 255, dtype=np.uint8)
@@ -62,7 +71,7 @@ def test_fill_holes_interior_crop_case():
 
 @pytest.mark.parametrize("method", ["otsu", "adaptive"])
 @pytest.mark.parametrize("blur,morph", [(0, 0), (3, 3), (4, 5), (31, 2)])
-def test_segment_unit_matches_reference(method, blur, morph):
+def test_segment_unit_matches_reference(method, blur, morph, ref_seg):
     for img in _rand_imgs(2, seed=blur * 100 + morph):
         p = SegmentationParams(
             method=method, gaussian_blur=blur, morph_kernel=morph,
@@ -76,7 +85,7 @@ def test_segment_unit_matches_reference(method, blur, morph):
         np.testing.assert_array_equal(ours, ref)
 
 
-def test_segment_unit_mold_like():
+def test_segment_unit_mold_like(ref_seg):
     grid = sample_grid_params()
     img = make_mold_image(grid, (3000, 4096), seed=3, defect_rate=1.0)
     crops = crop_units(img, grid)
@@ -87,7 +96,7 @@ def test_segment_unit_mold_like():
         np.testing.assert_array_equal(ours, ref)
 
 
-def test_mask_stats_matches_reference():
+def test_mask_stats_matches_reference(ref_seg):
     for m in [np.zeros((5, 5), np.uint8), random_blob_mask(30, 40, seed=2)]:
         assert mask_stats(m) == ref_seg.mask_stats(m)
 

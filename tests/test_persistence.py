@@ -19,8 +19,8 @@ from tpu_inspect.synthetic import sample_grid_params
 from tpu_inspect.geometry import grid_boxes
 
 
-def test_load_legacy_dict_grid():
-    doc = load_grid("/root/reference/grid.json")
+def test_load_legacy_dict_grid(reference_dir):
+    doc = load_grid(reference_dir / "grid.json")
     assert doc.version == 1
     assert len(doc.boxes) == 48
     assert doc.exclusions == []

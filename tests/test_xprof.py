@@ -3,7 +3,7 @@
 Generates a real jax.profiler trace on the test platform and checks the
 wire-format parser reads its planes/lines/metadata; device-op aggregation
 is exercised structurally (CPU traces carry no "XLA Ops" device line, so
-the TPU-shaped queries must return {} rather than garbage).
+the device-plane queries must return {} rather than garbage).
 """
 
 import numpy as np
@@ -62,8 +62,8 @@ def test_host_plane_aggregation(trace_dir):
 
 
 def test_device_query_shape(trace_dir):
-    # On CPU there is no device plane: the TPU-shaped query must be empty,
-    # never wrong. On TPU it returns per-op totals.
+    # On CPU there is no device plane: the device query must be empty,
+    # never wrong. On a GPU it returns per-op totals.
     totals = xprof.device_op_totals(trace_dir)
     assert isinstance(totals, dict)
     devplat = jax.devices()[0].platform

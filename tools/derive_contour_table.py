@@ -18,12 +18,14 @@ Writes the verified table to tpu_inspect/ops/_contour_table.py.
 
 from __future__ import annotations
 
+import pathlib
 import sys
 
 import cv2
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
 from tpu_inspect.synthetic import random_blob_mask  # noqa: E402
 
 
@@ -184,7 +186,7 @@ def main():
     print(f"held-out: {bad}/{total} mismatches")
     if bad == 0:
         table = cq.reshape(81, 3)
-        with open("/root/repo/tpu_inspect/ops/_contour_table.py", "w") as f:
+        with open(REPO / "tpu_inspect" / "ops" / "_contour_table.py", "w") as f:
             f.write(
                 '"""Auto-derived by tools/derive_contour_table.py — do not edit.\n\n'
                 "Per 3-state 2x2 vertex config (code = s00 + 3*s01 + 9*s10 + 27*s11,\n"

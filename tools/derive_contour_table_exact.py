@@ -22,13 +22,14 @@ contourArea computation on device.
 
 from __future__ import annotations
 
+import os
 import sys
 from fractions import Fraction
 
 import cv2
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from derive_contour_table import gen_masks  # noqa: E402
 
 

@@ -1,4 +1,4 @@
-"""tpu-inspect: a TPU-native (JAX/XLA/Pallas) vision-inspection framework.
+"""tpu-inspect: a JAX/XLA vision-inspection framework for accelerators.
 
 Re-implements the capabilities of the classical-CV semiconductor mold
 inspection tool (reference: hazernest/Vision-Inspection-system-Segmentation-
@@ -45,16 +45,14 @@ if _x64_env in ("0", "false", "no"):
     )
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: first compile of the fused pipeline is slow
-# (tens of seconds; worse through remote-compile tunnels), so cache it.
-_cache_dir = _os.environ.get(
-    "JAX_COMPILATION_CACHE_DIR", _os.path.expanduser("~/.cache/jax_tpu_inspect")
-)
-try:
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # very old jax without the cache config
-    pass
+# Persistent compilation cache. JAX reads JAX_COMPILATION_CACHE_DIR itself
+# when it is set; otherwise the cache lives at a fixed path inside the
+# checkout (ignored by git), so every process of a checkout shares it.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache",
+    ))
 
 __version__ = "0.1.0"
 

@@ -1,7 +1,7 @@
 """Typed configuration for the inspection engine.
 
 Mirrors the reference tool's live widget state (its only "config system"):
-defaults and ranges from /root/reference/indexing_ui.py:662-693 (grid),
+defaults and ranges from the reference's indexing_ui.py:662-693 (grid),
 :799-806 (segmentation), :870-879 (defect), :1522-1524 (hardcoded median k),
 :1548 (hardcoded max-area fraction). Field names follow the reference's grid
 JSON metadata schema (indexing_ui.py:2744-2755) so configs round-trip through

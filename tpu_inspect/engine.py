@@ -1,4 +1,4 @@
-"""Fused batched inspection pipelines (the TPU-native core).
+"""Fused batched inspection pipelines (the device core).
 
 The reference's per-unit Python loop over ~10 OpenCV calls
 (run_segmentation_all, indexing_ui.py:2203-2368) becomes ONE jitted device
@@ -19,7 +19,6 @@ recompiles only when the count crosses a power of two.
 from __future__ import annotations
 
 import functools
-import os
 from dataclasses import dataclass
 
 import jax
@@ -90,9 +89,8 @@ def pack_exclusions(exclusions) -> tuple[np.ndarray, np.ndarray]:
 def centroids_from_sums(sums: np.ndarray) -> np.ndarray:
     """[U, 3] integer (sx, sy, area) -> exact f64 mean centroids [U, 2].
 
-    Division happens here on the host because TPU float64 is emulated and
-    its quotient is a few ulps off correctly-rounded — persisted anchors
-    must bit-match the reference's numpy means (segmentation.py:103-111)."""
+    Division happens here on the host with numpy, so persisted anchors are
+    the reference's own numpy means bit for bit (segmentation.py:103-111)."""
     sums = np.asarray(sums)
     cnt = np.maximum(sums[:, 2], 1).astype(np.float64)
     return np.stack(
@@ -187,14 +185,9 @@ def raw_segment(crops: jnp.ndarray, seg: SegmentationParams) -> jnp.ndarray:
     k = _morph_k(seg)
     if k > 1:
         with jax.named_scope("morph"):
-            from tpu_inspect.ops.morph_pallas import close_open_pallas, morph_fits
-
-            if morph_fits(mask.shape):
-                mask = close_open_pallas(mask, k)
-            else:
-                se = morphology.ellipse_se(k)
-                mask = morphology.morph_close(mask, se)
-                mask = morphology.morph_open(mask, se)
+            se = morphology.ellipse_se(k)
+            mask = morphology.morph_close(mask, se)
+            mask = morphology.morph_open(mask, se)
     with jax.named_scope("holefill"):
         return hole_fill.fill_holes(mask)
 
@@ -213,34 +206,9 @@ def _segment_device(
     is_reference: bool,
     shape_hw: tuple[int, int],
 ):
-    from tpu_inspect.ops.fused_pallas import seg_tail_auto, tail_fits
-
-    if tail_fits(crops.shape):
-        # TPU: threshold compare + morphology + hole fill + alignment-
-        # centroid stats fused into one per-unit VMEM kernel (the split
-        # path round-trips HBM between every stage)
-        from tpu_inspect.ops.morph_pallas import _close_open_stages
-
-        k = _morph_k(seg)
-        stages = _close_open_stages(k) if k > 1 else ()
-        if seg.method == "adaptive":
-            mask0, thr_v = _blur_threshold(crops, seg), None
-        else:
-            x = crops
-            if seg.gaussian_blur and seg.gaussian_blur > 0:
-                with jax.named_scope("gauss"):
-                    x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
-            with jax.named_scope("otsu"):
-                mask0, thr_v = x, threshold.otsu_threshold(x)
-        with jax.named_scope("seg_tail"):
-            mask, area, sx, sy, has_fg, *_ = seg_tail_auto(
-                mask0, stages=stages, fill=True, out_largest=False, thr=thr_v
-            )
-    else:
-        mask = raw_segment(crops, seg)
-        pre_excl = mask > 0
-        with jax.named_scope("seg_centroid"):
-            _, area, sx, sy, has_fg = cc.largest_component_sums(pre_excl)
+    mask = raw_segment(crops, seg)
+    with jax.named_scope("seg_centroid"):
+        _, area, sx, sy, has_fg = cc.largest_component_sums(mask > 0)
 
     u = crops.shape[0]
     if is_reference:
@@ -248,10 +216,9 @@ def _segment_device(
         dy = jnp.zeros((u,), dtype=jnp.int32)
     else:
         # dx, dy = int(round(c1 - c0)): Python round() == banker's rounding,
-        # which jnp.rint matches (indexing_ui.py:2310-2311). The division
-        # is in-pipeline only (anchors are divided exactly on the host);
-        # on TPU the emulated-f64 quotient can be ~1e-14 relative off,
-        # which matters only when c1-c0 sits exactly on a .5 boundary.
+        # which jnp.rint matches (indexing_ui.py:2310-2311). The f64
+        # division is IEEE correctly rounded on the device, so c1 equals
+        # the reference's numpy mean bit for bit.
         cnt = jnp.maximum(area, 1).astype(jnp.float64)
         centroid = jnp.stack(
             [sx.astype(jnp.float64) / cnt, sy.astype(jnp.float64) / cnt],
@@ -263,17 +230,16 @@ def _segment_device(
         dy = jnp.where(ok, delta[:, 1], 0)
 
     if rects.shape[0] or circles.shape[0]:
-        if is_reference:
-            # dx = dy = 0 for every unit on the reference image, so the
-            # rasterized zone is unit-invariant: build it once at [1, H, W]
-            # and let the where broadcast (48x less compare volume than the
-            # per-unit [U, H, W] rasterization)
-            zone = exclusion_zone(shape_hw, rects, circles, dx[:1], dy[:1])
-        else:
-            zone = exclusion_zone(shape_hw, rects, circles, dx, dy)
-        mask = jnp.where(zone, jnp.uint8(0), mask)
-    # centroid sums stay integers: the host divides them exactly (TPU f64
-    # division is emulated and inexact; anchors must be bit-exact)
+        # dx = dy = 0 for every unit on the reference image, so there the
+        # rasterized zone is unit-invariant: build it once at [1, H, W] and
+        # let the where broadcast (48x less compare volume than the
+        # per-unit [U, H, W] rasterization)
+        n = 1 if is_reference else u
+        with jax.named_scope("exclusions"):
+            zone = exclusion_zone(shape_hw, rects, circles, dx[:n], dy[:n])
+            mask = jnp.where(zone, jnp.uint8(0), mask)
+    # centroid sums leave the device as exact integers; the host divides
+    # them with numpy, the reference's own arithmetic (centroids_from_sums)
     sums = jnp.stack(
         [
             sx.astype(jnp.int64),
@@ -348,257 +314,43 @@ def defect_roi(seg_masks: jnp.ndarray, erode_px: int):
     """ROI prep (indexing_ui.py:1480-1516): binarize seg mask, erode
     ``erode_px`` iterations of 3x3 rect, keep the largest 8-connected
     component (holes preserved). Returns (roi [U,H,W] bool, roi_empty [U])."""
-    roi, roi_empty, _, _, _, _, _ = _defect_roi_full(seg_masks, erode_px)
-    return roi, roi_empty
-
-
-def _defect_roi_full(seg_masks: jnp.ndarray, erode_px: int):
-    """defect_roi plus the derived per-unit scalars the defect pass needs:
-    (roi, roi_empty, roi_area [U] i32, row_lo, row_hi, col_lo, col_hi
-    [U] i32). The fused kernel emits them for free; fallbacks reduce in
-    XLA."""
-    from tpu_inspect.ops.fused_pallas import seg_tail_auto, tail_fits
-
-    if tail_fits(seg_masks.shape):
-        # TPU: (2n+1)^2 erode + largest-component selection in one kernel
-        # (the SAME stage constructor as the chained path — the two must
-        # stay identical for identical static cache keys and semantics)
-        stages = _roi_erode_stages(erode_px)
-        roi_u8, area, _, _, has_fg, row_lo, row_hi, col_lo, col_hi = (
-            seg_tail_auto(
-                seg_masks, stages=stages, fill=False, out_largest=True
-            )
-        )
-        return roi_u8 > 0, ~has_fg, area, row_lo, row_hi, col_lo, col_hi
-
-    roi, roi_empty = _defect_roi_fallback(seg_masks, erode_px)
-    h, w = seg_masks.shape[1:]
-    roi_area = roi.sum(axis=(1, 2), dtype=jnp.int32)
-
-    def extent(any_along, n):
-        has = any_along.any(axis=1)
-        lo = jnp.where(
-            has, jnp.argmax(any_along, axis=1).astype(jnp.int32), jnp.int32(n)
-        )
-        hi = jnp.where(
-            has,
-            jnp.int32(n)
-            - jnp.argmax(any_along[:, ::-1], axis=1).astype(jnp.int32),
-            jnp.int32(0),
-        )
-        return lo, hi
-
-    row_lo, row_hi = extent(roi.any(axis=2), h)
-    col_lo, col_hi = extent(roi.any(axis=1), w)
-    return roi, roi_empty, roi_area, row_lo, row_hi, col_lo, col_hi
-
-
-def _defect_roi_fallback(seg_masks: jnp.ndarray, erode_px: int):
     seg_bin = seg_masks > 0
     if erode_px > 0:
-        from tpu_inspect.ops.morph_pallas import erode_rect_pallas, morph_fits
-
-        bin_u8 = jnp.where(seg_bin, jnp.uint8(255), jnp.uint8(0))
-        if morph_fits(seg_masks.shape):
-            eroded = erode_rect_pallas(bin_u8, erode_px)
-        else:
-            eroded = morphology.erode_rect3(bin_u8, erode_px)
-        seg_bin = eroded > 0
-    largest, _, _, has_fg = cc.largest_component(seg_bin)
+        with jax.named_scope("roi_erode"):
+            bin_u8 = jnp.where(seg_bin, jnp.uint8(255), jnp.uint8(0))
+            seg_bin = morphology.erode_rect3(bin_u8, erode_px) > 0
+    with jax.named_scope("roi_largest"):
+        largest, _, _, _, has_fg = cc.largest_component_sums(seg_bin)
     return largest, ~has_fg
 
 
-def _candidate_mask(crops, params: DefectParams, row_lo, row_hi,
-                    col_lo=None, col_hi=None):
+def _candidate_mask(crops, params: DefectParams):
     """Pre-ROI defect candidate mask (indexing_ui.py:1519-1539).
 
-    Returns (cand [U,H,W] uint8, needs_open) — the residual-threshold or
-    Canny plane BEFORE the ROI AND / 3x3 open (those fuse into the blob
-    kernel downstream). ``row_lo``/``row_hi`` bound the rows the Pallas
-    median kernel processes (rows outside are ANDed away by the ROI);
-    ``col_lo``/``col_hi`` additionally bound the strip-tiled whole-image
-    path to the ROI's item grid. The narrow ROI column-window variant
-    (median + blob filter riding one shared 256-wide window) lives in
-    _defect_device."""
-    u, h, w = crops.shape
+    Returns (cand [U,H,W] uint8, needs_open): the residual-threshold or
+    Canny plane BEFORE the ROI AND and the 3x3 open."""
     thr = int(params.threshold)
     if params.method == "threshold":
         # residual from 21x21 median background (indexing_ui.py:1519-1535)
         k = int(params.median_k)
         if k % 2 == 0:
             k += 1
-        from tpu_inspect.ops.median_pallas import (
-            median_fits,
-            median_fits_tiled,
-            median_residual_mask_pallas,
-            median_residual_mask_tiled,
-        )
-
-        shape = (u, h, w)
-        if k * k < 2048 and median_fits(shape):
-            # fused Pallas kernel: the median value itself is never needed,
-            # only whether it leaves [g-thr, g+thr] (two rank queries).
-            # Only rows intersecting the ROI are processed (the result is
-            # ANDed with the ROI in the blob kernel); the bounds come out
-            # of the ROI kernel's stats row for free. (The narrow column-
-            # window variant lives in _defect_device, where the blob filter
-            # rides the same window.)
-            with jax.named_scope("median_residual"):
-                cand = median_residual_mask_pallas(
-                    crops, k, thr, row_lo=row_lo, row_hi=row_hi
-                )
-        elif k * k < 2048 and median_fits_tiled(shape):
-            # plane beyond whole-batch VMEM residency (e.g. a single
-            # whole-image crop): strip-tiled march, input stays in HBM,
-            # item grid bounded to the ROI's bounding box (rows outside
-            # are unwritten — the blob stage ANDs with the ROI)
-            with jax.named_scope("median_residual_tiled"):
-                cand = median_residual_mask_tiled(
-                    crops, k, thr,
-                    row_lo=row_lo, row_hi=row_hi,
-                    col_lo=col_lo, col_hi=col_hi,
-                )
-        else:
-            with jax.named_scope("median_bg"):
-                bg = median.median_blur_u8(crops, k)
+        with jax.named_scope("median_residual"):
+            bg = median.median_blur_u8(crops, k)
             resid = jnp.abs(crops.astype(jnp.int32) - bg.astype(jnp.int32))
-            cand = threshold.threshold_binary(resid, thr)
-        return cand, True
+            return threshold.threshold_binary(resid, thr), True
     from tpu_inspect.ops import canny as canny_op
 
-    return canny_op.canny_u8(crops, max(1, thr // 2), max(2, thr)), False
-
-
-# Static width of the median kernel's per-unit ROI column window: 2 exact
-# lane tiles (no padding waste vs 316 -> 384), covering ROI spans up to
-# 256 - (k - 1) columns with the halo the 21x21 window needs.
-_MEDIAN_COL_WINDOW = 256
-
-
-def _defect_narrow_window(
-    crops, params: DefectParams, roi, row_lo, row_hi, col_lo, col_hi,
-    *, min_area: int, max_area,
-):
-    """TPU fast path: median residual AND blob filter ride one shared ROI
-    column window. Returns (out_u8 [U,H,W], area [U]) or None when the
-    static gates don't apply.
-
-    The median kernel runs on a 256-wide window (2 exact lane tiles) around
-    the union of the per-unit ROI column spans; the blob filter then runs on
-    a 255-wide window of the SAME region (255 so its vertex planes pad to
-    256 lanes instead of 384 — the whole contour stage gets ~33% cheaper).
-    ONE scalar window start is shared by all units: grid units image the
-    same mold pattern, so their ROI columns align, and a shared start keeps
-    the slices single dynamic-slice ops (the per-unit vmapped form lowered
-    to ~0.3 ms of 48-step while loops). Candidate pixels live inside the
-    ROI (the blob kernel ANDs with it), and the window construction leaves
-    >= (k//2)-1 background columns between the ROI and any non-image window
-    edge, so the narrow plane's implicit exterior border is contour-
-    equivalent to the full plane's. Falls back at runtime (lax.cond) to the
-    pure-XLA median scan + full-width blob kernel when the ROI column union
-    exceeds the window (exactness insurance — see the branch comment for
-    why the full-width RESIDENT median kernels can't sit in this branch).
-    Reference semantics: indexing_ui.py:1519-1558.
-    """
-    from tpu_inspect.ops.blob_pallas import blob_filter_fits, blob_filter_pallas
-    from tpu_inspect.ops.median_pallas import (
-        median_fits,
-        median_residual_mask_pallas,
-    )
-
-    u, h, w = crops.shape
-    if params.method != "threshold":
-        return None
-    k = int(params.median_k)
-    if k % 2 == 0:
-        k += 1
-    thr = int(params.threshold)
-    W = _MEDIAN_COL_WINDOW
-    WB = W - 1  # blob window: WB+1 vertex columns pad to exactly 2 tiles
-    if not (
-        k * k < 2048
-        and w > W
-        and median_fits((u, h, W))
-        and blob_filter_fits((u, h, WB))
-        and blob_filter_fits((u, h, w))
-    ):
-        return None
-    r_h = k // 2
-    lo_all = jnp.min(col_lo).astype(jnp.int32)
-    hi_all = jnp.max(col_hi).astype(jnp.int32)
-    start_m = jnp.clip(lo_all - r_h, 0, w - W)
-    start_b = jnp.clip(lo_all - r_h, 0, w - WB)
-    # span <= W - 2*r_h keeps the median halo inside the window; the extra
-    # <= WB - r_h - 1 bound (binding only at median_k=3) guarantees >= 1
-    # REAL background column between the ROI's right edge and the blob
-    # window's last column — the blob pre-open treats out-of-window as the
-    # erode neutral (255), so an ROI-edge candidate pixel must see its
-    # in-image zero neighbor inside the window to die exactly as it does in
-    # the full-width path
-    fits_all = (hi_all - lo_all) <= jnp.int32(
-        min(W - 2 * r_h, WB - r_h - 1)
-    )
-
-    def narrow(c):
-        sl = jax.lax.dynamic_slice(
-            c, (jnp.int32(0), jnp.int32(0), start_m), (u, h, W)
-        )
-        # chunk=24 + cdfx rank queries (cumulative hist + binary-select
-        # cdf extraction): measured 2.85 ms standalone vs 3.13-3.27 for
-        # qdirect and 3.24 for the round-2 chunk=8 base
-        # (tools/median_sweep.py; chunk=48 breaks the remote Mosaic compile)
-        cn = median_residual_mask_pallas(
-            sl, k, thr, row_lo=row_lo, row_hi=row_hi, chunk=24,
-            variant="cdfx",
-        )
-        # blob window sits at start_b >= start_m with start_b - start_m
-        # in {0, 1} (w-WB vs w-W clip); both cover the ROI with margin
-        cb = jax.lax.dynamic_slice(
-            cn, (jnp.int32(0), jnp.int32(0), start_b - start_m), (u, h, WB)
-        )
-        roi_n = jax.lax.dynamic_slice(
-            roi, (jnp.int32(0), jnp.int32(0), start_b), (u, h, WB)
-        )
-        out_n, area = blob_filter_pallas(
-            cb, 2 * max_area, min_x2=2 * min_area, roi=roi_n, pre_open=True
-        )
-        base = jnp.zeros((u, h, w), jnp.uint8)
-        out_full = jax.lax.dynamic_update_slice(
-            base, out_n, (jnp.int32(0), jnp.int32(0), start_b)
-        )
-        return out_full, area
-
-    def full(c):
-        # exactness-insurance branch (ROI union wider than the window —
-        # essentially never on grid workloads). PURE-XLA median scan, NOT
-        # any full-width resident kernel: the [U, H, 1, W] VMEM layouts of
-        # those kernels blew the 16 MB scoped-VMEM limit in larger programs
-        # (the multi-frame stream loop), failing the whole compile for a
-        # branch that never runs.
-        bg = median._median_blur_u8_scan(c, k)
-        resid = jnp.abs(c.astype(jnp.int32) - bg.astype(jnp.int32))
-        cand = threshold.threshold_binary(resid, thr)
-        return blob_filter_pallas(
-            cand, 2 * max_area, min_x2=2 * min_area, roi=roi, pre_open=True
-        )
-
-    with jax.named_scope("defect_narrow_window"):
-        return jax.lax.cond(fits_all, narrow, full, crops)
+    with jax.named_scope("canny"):
+        return canny_op.canny_u8(crops, max(1, thr // 2), max(2, thr)), False
 
 
 @functools.partial(jax.jit, static_argnames=("params",))
 def _defect_device(crops, seg_masks, *, params: DefectParams):
+    """Defect pass + verdicts (indexing_ui.py:1471-1572, :1669-1700)."""
     with jax.named_scope("defect_roi"):
-        roi_pack = _defect_roi_full(seg_masks, int(params.erode_px))
-    return _defect_from_roi(crops, roi_pack, params=params)
-
-
-def _defect_from_roi(crops, roi_pack, *, params: DefectParams):
-    """Defect pass given a precomputed ROI pack (the _defect_roi_full
-    tuple) — split out so the chained seg+roi kernel's outputs feed the
-    same body (indexing_ui.py:1519-1572)."""
-    u, h, w = crops.shape
-    roi, roi_empty, roi_area, row_lo, row_hi, col_lo, col_hi = roi_pack
+        roi, roi_empty = defect_roi(seg_masks, int(params.erode_px))
+    roi_area = roi.sum(axis=(1, 2), dtype=jnp.int32)
 
     # area filter (indexing_ui.py:1542-1558): Python int() truncation of
     # roi_area * 0.98 computed in double; comparisons run on exact 2x-areas
@@ -609,62 +361,22 @@ def _defect_from_roi(crops, roi_pack, *, params: DefectParams):
             roi_area.astype(jnp.float64) * jnp.float64(params.max_area_frac)
         ).astype(jnp.int32),
     )
-    from tpu_inspect.ops.blob_pallas import blob_filter_fits, blob_filter_pallas
-
-    narrow_out = _defect_narrow_window(
-        crops, params, roi, row_lo, row_hi, col_lo, col_hi,
-        min_area=min_area, max_area=max_area,
-    )
-    if narrow_out is not None:
-        out_u8, area = narrow_out
-        found = area > jnp.int32(0)
-        verdict = found & (area >= jnp.int32(min_area))
-        return out_u8, found, area, verdict
-
-    cand, needs_open = _candidate_mask(
-        crops, params, row_lo, row_hi, col_lo, col_hi
-    )
+    cand, needs_open = _candidate_mask(crops, params)
 
     with jax.named_scope("blob_filter"):
-        if blob_filter_fits(crops.shape):
-            # TPU: ROI AND + 3x3 open + the whole contour filter in one
-            # per-unit VMEM kernel, emitting the final 0/255 mask and the
-            # per-unit pixel area directly (indexing_ui.py:1528-1558,
-            # :1691-1700) — no XLA masking/sum passes downstream
-            out_u8, area = blob_filter_pallas(
-                cand,
-                2 * max_area,
-                min_x2=2 * min_area,
-                roi=roi,
-                pre_open=needs_open,
-            )
-            found = area > jnp.int32(0)
-            verdict = found & (area >= jnp.int32(min_area))
-            return out_u8, found, area, verdict
-        else:
-            cand = jnp.where(roi, cand, jnp.uint8(0))
-            if needs_open:
-                with jax.named_scope("cand_open"):
-                    from tpu_inspect.ops.morph_pallas import (
-                        morph_fits,
-                        open_pallas,
-                    )
-
-                    if morph_fits(cand.shape):
-                        cand = open_pallas(cand, 3)
-                    else:
-                        cand = morphology.morph_open(
-                            cand, morphology.ellipse_se(3)
-                        )
-            out, found = contour.filter_and_select(
-                cand > 0, 2 * min_area, 2 * max_area
-            )
+        cand = jnp.where(roi, cand, jnp.uint8(0))
+        if needs_open:
+            with jax.named_scope("cand_open"):
+                cand = morphology.morph_open(cand, morphology.ellipse_se(3))
+        out, found = contour.filter_and_select(
+            cand > 0, 2 * min_area, 2 * max_area
+        )
     found = found & ~roi_empty
     out = jnp.where(found[:, None, None], out, False)
     area = out.sum(axis=(1, 2), dtype=jnp.int32)
     # verdict: NG iff defect area >= min area; None mask => OK
     # (indexing_ui.py:1686-1700)
-    verdict = found & (area >= jnp.int32(int(params.min_area)))
+    verdict = found & (area >= jnp.int32(min_area))
     return jnp.where(out, jnp.uint8(255), jnp.uint8(0)), found, area, verdict
 
 
@@ -693,11 +405,9 @@ def defect_intermediates(
         "erode_px": int(params.erode_px),
         "min_area": int(params.min_area),
     }
-    roi, roi_empty, roi_area, row_lo, row_hi, _, _ = _defect_roi_full(
-        masks, int(params.erode_px)
-    )
+    roi, roi_empty = defect_roi(masks, int(params.erode_px))
     out["roi_empty"] = bool(np.asarray(roi_empty)[0])
-    out["roi_area"] = int(np.asarray(roi_area)[0])
+    out["roi_area"] = int(np.asarray(roi).sum())
     # max_area = max(min_area, int(seg_area * 0.98)) with Python-int
     # truncation of the double product (indexing_ui.py:1548-1549)
     out["max_area"] = max(
@@ -705,7 +415,7 @@ def defect_intermediates(
     )
     if out["roi_empty"]:
         return out
-    cand, needs_open = _candidate_mask(crops, params, row_lo, row_hi)
+    cand, needs_open = _candidate_mask(crops, params)
     cand = jnp.where(roi, cand, jnp.uint8(0))
     if needs_open:
         cand = morphology.morph_open(cand, morphology.ellipse_se(3))
@@ -768,93 +478,6 @@ def inspect_units(
 # ---------------------------------------------------------------------------
 
 
-def _roi_erode_stages(erode_px: int):
-    n = int(erode_px)
-    if n <= 0:
-        return ()
-    return (("erode", tuple((dy, -n, n) for dy in range(-n, n + 1))),)
-
-
-def _segment_roi_device(
-    crops, rects, circles, *, seg: SegmentationParams, erode_px: int,
-    shape_hw,
-):
-    """Reference-image segmentation + defect-ROI prep CHAINED in one paired
-    kernel (ops/fused_pallas.seg_roi_tail_paired_pallas): the seg->roi
-    intermediate stays in VMEM, the shared exclusion zone applies in-kernel,
-    and one input DMA serves both stages. Caller gates (otsu method,
-    is_reference, seg_roi_paired_fits). Returns the _segment_device tuple
-    plus the _defect_roi_full pack."""
-    from tpu_inspect.ops.fused_pallas import seg_roi_tail_paired_pallas
-    from tpu_inspect.ops.morph_pallas import _close_open_stages
-
-    u = crops.shape[0]
-    k = _morph_k(seg)
-    stages = _close_open_stages(k) if k > 1 else ()
-    x = crops
-    if seg.gaussian_blur and seg.gaussian_blur > 0:
-        with jax.named_scope("gauss"):
-            x = gaussian_blur_u8(x, as_odd(seg.gaussian_blur))
-    with jax.named_scope("otsu"):
-        thr_v = threshold.otsu_threshold(x)
-    has_excl = bool(rects.shape[0] or circles.shape[0])
-    zone = None
-    if has_excl:
-        z1 = jnp.zeros((1,), jnp.int32)
-        zone = exclusion_zone(shape_hw, rects, circles, z1, z1)[0]
-    with jax.named_scope("seg_roi_tail"):
-        (
-            mask, area, sx, sy, has_fg,
-            roi_u8, roi_area, roi_has, rl, rh, cl, ch,
-        ) = seg_roi_tail_paired_pallas(
-            x, stages, _roi_erode_stages(erode_px), thr_v,
-            zone=zone, use_zone=has_excl,
-        )
-    dxy = jnp.zeros((u, 2), dtype=jnp.int32)
-    sums = jnp.stack(
-        [
-            sx.astype(jnp.int64),
-            sy.astype(jnp.int64),
-            area.astype(jnp.int64),
-        ],
-        axis=-1,
-    )
-    roi_pack = (roi_u8 > 0, ~roi_has, roi_area, rl, rh, cl, ch)
-    return (mask, sums, has_fg, dxy), roi_pack
-
-
-# Read ONCE at import: the gate runs at trace time and the engine's jit
-# cache is not keyed on it, so a mid-process flip would be silently ignored
-# for already-traced shapes anyway. Set the env var before importing
-# tpu_inspect (or call jax.clear_caches() after changing it).
-_ENABLE_CHAIN = bool(os.environ.get("TPU_INSPECT_ENABLE_CHAIN"))
-
-
-def _seg_roi_chain_fits(crops_shape, seg: SegmentationParams,
-                        erode_px: int) -> bool:
-    from tpu_inspect.ops.fused_pallas import seg_roi_paired_fits
-    from tpu_inspect.ops.morph_pallas import _close_open_stages
-
-    if not _ENABLE_CHAIN:
-        # Both paths are exact and within noise of each other; the split
-        # kernels measured consistently ~0.02 ms/image faster across three
-        # A/B pairs (4.63-4.68 vs 4.65-4.70), so they stay the default and
-        # the chained kernel is the opt-in variant (it removes two
-        # whole-batch XLA passes — likely the better trade on hardware
-        # without this environment's dispatch patterns). Covered either
-        # way: interpret + TPU-hardware parity tests run the chained
-        # kernel directly, and tests/test_fused_interpret.py drives the
-        # full engine pipeline through this gate with the flag forced.
-        return False
-    if seg.method == "adaptive":
-        return False  # the chained kernel fuses the otsu threshold compare
-    k = _morph_k(seg)
-    stages = _close_open_stages(k) if k > 1 else ()
-    return seg_roi_paired_fits(
-        crops_shape, stages, _roi_erode_stages(erode_px)
-    )
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("seg", "defect", "is_reference", "unit_hw", "with_defects"),
@@ -875,28 +498,13 @@ def _inspect_image_device(
 ):
     from tpu_inspect.imageio import gather_crops
 
-    # Barrier: without it XLA fuses the big-image gather into downstream
-    # loop bodies (median scan, CC/flood fixpoints) and recomputes the
-    # slice every iteration — a ~10x pipeline regression on TPU.
-    crops = jax.lax.optimization_barrier(
-        gather_crops(image, origins, unit_hw=unit_hw)
-    )
-    if (
-        with_defects
-        and is_reference
-        and _seg_roi_chain_fits(crops.shape, seg, int(defect.erode_px))
-    ):
-        seg_out, roi_pack = _segment_roi_device(
-            crops, rects, circles, seg=seg,
-            erode_px=int(defect.erode_px), shape_hw=unit_hw,
+    # Barrier: without it XLA may fuse the big-image gather into the
+    # downstream loop bodies (median scan, CC/flood fixpoints) and recompute
+    # the slice on every iteration.
+    with jax.named_scope("gather"):
+        crops = jax.lax.optimization_barrier(
+            gather_crops(image, origins, unit_hw=unit_hw)
         )
-        # barrier (like the split path's on masks): without it the
-        # scheduler can overlap the chained-tail and median kernels'
-        # scoped-VMEM allocations, which blew the 16 MB limit in the
-        # multi-frame stream program
-        roi_pack = jax.lax.optimization_barrier(roi_pack)
-        defect_out = _defect_from_roi(crops, roi_pack, params=defect)
-        return seg_out + (defect_out,)
     seg_out = _segment_device(
         crops,
         rects,
@@ -926,7 +534,7 @@ def inspect_image(
     """Full-image inspection: one device roundtrip from the raw grayscale
     image to per-unit masks, defect blobs, and X/O verdicts.
 
-    This is the TPU-native replacement for the whole
+    This is the device replacement for the whole
     run_segmentation_all + run_inspection stack (indexing_ui.py:2203-2368,
     :1634-1709): crop gather, segmentation, exclusion alignment, defect
     detection and verdicts fused into a single jitted program.

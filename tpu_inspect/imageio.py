@@ -9,7 +9,7 @@ BGR->gray conversion runs on device (ops.color).
 The crop gather replaces the per-unit ``QImage.copy`` host loop
 (indexing_ui.py:2270): all unit origins go to the device as one [U, 2]
 tensor and a vmapped dynamic_slice produces the [U, h, w] crop batch
-directly in HBM.
+directly in device memory.
 """
 
 from __future__ import annotations
@@ -76,11 +76,11 @@ def decode_gray(data: bytes) -> np.ndarray:
 
 
 def _to_gray_u8(img: np.ndarray) -> np.ndarray:
-    import cv2
-
     if img.dtype == np.uint16:
         img = (img / 256).astype(np.uint8)
     elif img.dtype != np.uint8:
+        import cv2  # only the float min-max branch needs OpenCV
+
         img = cv2.normalize(img, None, 0, 255, cv2.NORM_MINMAX).astype(np.uint8)
     if img.ndim == 3:
         if img.shape[2] == 4:

@@ -22,6 +22,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from tpu_inspect.ops.hole_fill import propagate8
+
 _TG22 = 13573  # tan(22.5 deg) * 2^15, OpenCV's CANNY_SHIFT fixed point
 
 
@@ -44,43 +46,6 @@ def _sobel3(x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
         + (sl(1, 1) - sl(-1, 1))
     )
     return gx, gy
-
-
-def _propagate8(seed: jnp.ndarray, domain: jnp.ndarray) -> jnp.ndarray:
-    """8-connected reachability of `seed` through `domain` (batched fixpoint)."""
-    from tpu_inspect.ops.flood_pallas import (
-        flood_fits,
-        flood_fits_tiled,
-        propagate_pallas,
-        propagate_pallas_tiled,
-    )
-    from tpu_inspect.ops.hole_fill import _axis_sweep
-
-    if flood_fits(seed.shape):
-        return propagate_pallas(seed, domain, conn8=True)
-    if flood_fits_tiled(seed.shape):
-        # whole-image crops: halo-exchanging strip sweeps instead of the
-        # HBM-round-tripping XLA fixpoint below
-        return propagate_pallas_tiled(seed, domain, conn8=True)
-
-    def dilate8(m):
-        p = jnp.pad(m, ((0, 0), (1, 1), (1, 1)))
-        return jax.lax.reduce_window(
-            p, False, jax.lax.bitwise_or, (1, 3, 3), (1, 1, 1), "VALID"
-        )
-
-    def cond(state):
-        return state[1]
-
-    def body(state):
-        reach, _ = state
-        new = dilate8(reach) & domain
-        new = _axis_sweep(new, domain, axis=reach.ndim - 1)
-        new = _axis_sweep(new, domain, axis=reach.ndim - 2)
-        return new, (new != reach).any()
-
-    reach, _ = jax.lax.while_loop(cond, body, (seed & domain, jnp.bool_(True)))
-    return reach
 
 
 @functools.partial(jax.jit, static_argnames=("low", "high"))
@@ -121,5 +86,5 @@ def canny_u8(x: jnp.ndarray, low: int, high: int) -> jnp.ndarray:
     nms = (horiz & keep_h) | (vert & keep_v) | (diag & keep_d)
     cand = nms & (mag > low)
     strong = cand & (mag > high)
-    edges = _propagate8(strong, cand)
+    edges = propagate8(strong, cand)
     return jnp.where(edges, jnp.uint8(255), jnp.uint8(0))

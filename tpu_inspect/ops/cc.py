@@ -50,9 +50,8 @@ def _seg_cummin(vals: jnp.ndarray, fg: jnp.ndarray, axis: int) -> jnp.ndarray:
     k = 1 << max(2, int(np.ceil(np.log2(hw + 2))))
     use_i64 = (n + 1) * k >= 2**31
     if use_i64 and (2**30 // k) >= 8:
-        # whole-image planes: int64 keys would lower to emulated
-        # (u32,u32)-pair scans (~2x the bandwidth, and fragile inside big
-        # fusions) — chunk the axis so keys stay int32
+        # whole-image planes: chunk the axis so keys stay int32 (int64
+        # scans would move twice the bytes)
         return _seg_cummin_chunked(vals, fg, axis, k)
     dt = jnp.int64 if use_i64 else jnp.int32
     kk = jnp.asarray(k, dtype=dt)
@@ -154,103 +153,15 @@ def _nbhd_min(vals: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-_TILE_HW = (315, 316)  # the proven resident-kernel envelope (48-unit batch)
-
-
-def _tile_seeded_init(fg: jnp.ndarray, tile_hw: tuple[int, int] = _TILE_HW):
-    """Init labels for the global fixpoint from per-tile labelings.
-
-    Whole-image planes (BASELINE config 1) exceed the resident kernel's
-    VMEM budget, but each 315x316 tile is exactly the production envelope:
-    label every tile independently (re-batched through label_components,
-    so the resident Pallas kernel does the pixel-level work on TPU), then
-    globalize tile labels to y*w+x of each fragment's tile-raster-first
-    pixel. The global XLA fixpoint then only resolves cross-tile merges —
-    a few row/col sweeps — instead of propagating at pixel level.
-
-    Exactness: the fixpoint limit is min-over-component of the init
-    labels. A component's raster-first pixel p is also the tile-raster
-    first of its own fragment (local order (ly,lx) preserves global (y,x)
-    lex order within a tile), so p's fragment init label is y(p)*w+x(p);
-    every other fragment-first q has y(q)*w+x(q) >= that. The limit is
-    therefore the component's raster-first index — identical to the
-    classic y*w+x init.
-    """
-    u, h, w = fg.shape
-    th, tw = tile_hw
-    nh, nw = -(-h // th), -(-w // tw)
-    fgp = jnp.pad(fg, ((0, 0), (0, nh * th - h), (0, nw * tw - w)))
-    tiles = (
-        fgp.reshape(u, nh, th, nw, tw)
-        .transpose(0, 1, 3, 2, 4)
-        .reshape(u * nh * nw, th, tw)
-    )
-    ch = 48  # the proven batch count; one compiled kernel serves every chunk
-    t = tiles.shape[0]
-    pad = (-t) % ch
-    if pad:
-        tiles = jnp.concatenate(
-            [tiles, jnp.zeros((pad, th, tw), tiles.dtype)], axis=0
-        )
-    labs = jnp.concatenate(
-        [
-            label_components(tiles[i : i + ch])
-            for i in range(0, tiles.shape[0], ch)
-        ],
-        axis=0,
-    )[:t]
-    tidx = jnp.arange(t, dtype=jnp.int32)
-    ty = (tidx % (nh * nw)) // nw
-    tx = tidx % nw
-    ly = labs // tw
-    lx = labs % tw
-    gy = ty[:, None, None] * th + ly
-    gx = tx[:, None, None] * tw + lx
-    gl = jnp.where(labs >= jnp.int32(th * tw), _BIG, gy * w + gx)
-    init = (
-        gl.reshape(u, nh, nw, th, tw)
-        .transpose(0, 1, 3, 2, 4)
-        .reshape(u, nh * th, nw * tw)[:, :h, :w]
-    )
-    return jnp.where(fg, init, _BIG)
-
-
-def label_components(fg: jnp.ndarray, plan: str = "crc") -> jnp.ndarray:
+def label_components(fg: jnp.ndarray) -> jnp.ndarray:
     """fg: [U, H, W] bool -> int32 root labels (y*W+x of raster-first pixel).
 
-    Background pixels get _BIG (2^30). Dispatches to the VMEM-resident
-    Pallas fixpoint on TPU when shapes fit (~10x faster than the XLA
-    while-loop, which round-trips HBM every iteration); planes beyond the
-    budget (whole-image crops) seed the XLA fixpoint from per-tile resident
-    labelings (_tile_seeded_init). ``plan`` is the Pallas kernel's
-    sweep-plan perf hint (result-invariant): "crc" for large blob masks,
-    "rc" for sparse specks.
+    Background pixels get _BIG (2^30).
     """
     u, h, w = fg.shape
-    hw = h * w
-    k_pow = max(2, int(np.ceil(np.log2(hw + 2))))
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        on_tpu = False
-    from tpu_inspect.ops.cc_pallas import fixpoint_vmem_est
-
-    if (
-        on_tpu
-        and (max(h, w) + 1) * (1 << k_pow) < 2**31
-        and fixpoint_vmem_est(u, h, w) < 15 * 2**20
-    ):
-        from tpu_inspect.ops.cc_pallas import label_components_pallas
-
-        return label_components_pallas(fg, plan=plan)
-    if on_tpu and h * w > _TILE_HW[0] * _TILE_HW[1]:
-        # whole-image class: pixel-level labeling per tile on the resident
-        # kernel, cross-tile resolution in the XLA sweeps below
-        init = _tile_seeded_init(fg)
-    else:
-        yy = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 1)
-        xx = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 2)
-        init = jnp.where(fg, yy * w + xx, _BIG)
+    yy = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 1)
+    xx = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 2)
+    init = jnp.where(fg, yy * w + xx, _BIG)
     return _xla_label_fixpoint(fg, init)
 
 
@@ -313,15 +224,12 @@ def largest_component_sums(fg: jnp.ndarray):
 
     Returns (mask [U,H,W] bool, area [U] int, sx [U] int, sy [U] int,
     has_fg [U] bool) where sx/sy are the EXACT coordinate sums of the
-    component's pixels. Callers that need the reference's float64 mean
-    centroid (indexing_ui.py:2235-2248) should divide on the HOST:
-    TPU float64 is software-emulated and its division is several ulps off
-    correctly-rounded, so device-side division would leak into persisted
-    anchors (use :func:`largest_component` only for in-pipeline values).
+    component's pixels. Callers that persist the reference's float64 mean
+    centroid (indexing_ui.py:2235-2248) divide on the host with numpy
+    (engine.centroids_from_sums); :func:`largest_component` divides on the
+    device for in-pipeline values.
 
-    Implementation: on TPU a Pallas kernel enumerates component roots with
-    VMEM-resident reductions (ops.cc_pallas.component_stats_pallas); the
-    fallback sorts the labels and reduces run lengths.
+    Implementation: the labels are sorted and run lengths reduced.
 
     Area ties follow OpenCV exactly: cv2.connectedComponentsWithStats
     (BBDT/Spaghetti, 8-connectivity) numbers components by first appearance
@@ -336,36 +244,7 @@ def largest_component_sums(fg: jnp.ndarray):
     u, h, w = fg.shape
     hw = h * w
 
-    from tpu_inspect.ops.cc_pallas import (
-        component_stats_pallas,
-        fused_stats_fits,
-        largest_component_stats_pallas,
-        stats_fits,
-    )
-
-    if fused_stats_fits(fg.shape):
-        # TPU: one kernel — label fixpoint + root enumeration with the
-        # labels VMEM-resident (no [U, H, W] int32 HBM round trip)
-        return largest_component_stats_pallas(fg)
-
     labels = label_components(fg)
-
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        on_tpu = False
-    if (
-        on_tpu
-        and h * w > _TILE_HW[0] * _TILE_HW[1]
-        and u * hw < 2**31 - 1
-    ):
-        # whole-image class: per-tile parallel-segment sorts + exact
-        # boundary-ring aggregation instead of one [U, H*W] global sort
-        return largest_component_sums_tiled(fg, labels)
-
-    if stats_fits(fg.shape):
-        # TPU: sequential-over-roots VMEM reduction (no [U, H*W] sort)
-        return component_stats_pallas(labels, h=h, w=w)
 
     yy = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 1)
     xx = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 2)
@@ -410,320 +289,14 @@ def largest_component_sums(fg: jnp.ndarray):
     return best_mask, area, sx, sy, has_fg
 
 
-def _winner_per_unit(keys, areas, brs, u: int, hw: int, sent):
-    """Per-unit winner from 1-D candidate rows (key = unit*hw + root):
-    max area, ties by min block rank — one tiny 4-operand sort + a
-    searchsorted over the unit ids. Returns [u] int32 root labels
-    (hw when the unit has no candidate)."""
-    live = keys < sent
-    unit_of = jnp.where(live, keys // hw, jnp.int32(u))
-    area_rank = jnp.where(live, jnp.int32(hw) - areas, jnp.int32(hw) + 1)
-    ku, ka, kb, kk = jax.lax.sort(
-        (unit_of[None], area_rank[None], brs[None], keys[None]),
-        dimension=1,
-        num_keys=3,
-    )
-    firsts = jnp.clip(
-        jnp.searchsorted(ku[0], jnp.arange(u, dtype=jnp.int32)),
-        0,
-        ku.shape[1] - 1,
-    )
-    present = ku[0][firsts] == jnp.arange(u, dtype=jnp.int32)
-    return jnp.where(
-        present,
-        kk[0][firsts] - jnp.arange(u, dtype=jnp.int32) * hw,
-        jnp.int32(hw),
-    )
-
-
-def largest_component_sums_tiled(
-    fg: jnp.ndarray,
-    labels: jnp.ndarray,
-    tile_hw: tuple[int, int] = _TILE_HW,
-    use_tables: bool | None = None,
-):
-    """largest_component_sums for whole-image planes, given exact labels
-    (the tile-seeded fixpoint output) — no global [U, H*W] sort.
-
-    Per-tile runs come from [T, th*tw] parallel-segment sorts (many short
-    segments sort faster than one 12M-element segment on TPU); cross-tile
-    totals aggregate EXACTLY on the tiny boundary-ring table:
-
-    - a component spanning tiles must, in every tile it visits, have a
-      pixel on that tile's boundary ring (some pixel there neighbors the
-      outside), so each of its per-tile fragments appears among that
-      tile's ring labels; summing the deduplicated (tile, root) ring
-      entries per root gives exact totals and exact min block ranks for
-      every ring-touching component;
-    - components interior to one tile compete via their tile's best
-      non-ring run: an interior run beaten inside its own tile (area
-      desc, block rank asc) can never win globally, because any ring
-      fragment tying it belongs to a strictly larger component;
-
-    the winner is the max-area candidate, ties by min block rank — the
-    cv2 block-raster order documented on largest_component_sums. Output
-    contract identical. Requires u*h*w < 2**31 (int32 keys).
-    """
-    u, h, w = fg.shape
-    hw = h * w
-    if u * hw >= 2**31 - 1:
-        raise ValueError("tiled stats need u*h*w < 2^31")
-    th, tw = tile_hw
-    nh, nw = -(-h // th), -(-w // tw)
-    t_n = u * nh * nw
-    thw = th * tw
-    sent = jnp.int32(u * hw)
-    brbig = jnp.int32(2**30)
-
-    ukey = (jnp.arange(u, dtype=jnp.int32) * hw)[:, None, None]
-    key_img = jnp.where(fg, labels + ukey, sent)
-    yy = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 1)
-    xx = jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 2)
-    bw_ = (w + 1) // 2
-    br_img = ((yy >> 1) * bw_ + (xx >> 1)) * 4 + (yy & 1) * 2 + (xx & 1)
-
-    def tile(x, fill):
-        xp = jnp.pad(
-            x,
-            ((0, 0), (0, nh * th - h), (0, nw * tw - w)),
-            constant_values=fill,
-        )
-        return (
-            xp.reshape(u, nh, th, nw, tw)
-            .transpose(0, 1, 3, 2, 4)
-            .reshape(t_n, th, tw)
-        )
-
-    keys_t = tile(key_img, u * hw)
-
-    # ---- sort-free front end: per-tile component tables from a Pallas
-    # kernel (a handful of masked-min sweeps per tile — mold masks hold
-    # 1-5 fragments per tile), aggregated on a [1, T*128] table. The
-    # [T, th*tw] segment sorts + ring machinery below remain as the exact
-    # runtime fallback for tiles with > _TABLE_K distinct components.
-    from tpu_inspect.ops.cc_pallas import tile_component_tables_pallas
-
-    thp = -(-th // 8) * 8
-    twp = -(-tw // 128) * 128
-    keys_pad = jnp.pad(
-        keys_t,
-        ((0, 0), (0, thp - th), (0, twp - tw)),
-        constant_values=u * hw,
-    )
-    org = np.zeros((t_n, 2), dtype=np.int32)
-    for uu in range(u):
-        for i in range(nh):
-            for j in range(nw):
-                org[(uu * nh + i) * nw + j] = (i * th, j * tw)
-    if use_tables is None:
-        try:
-            use_tables = jax.devices()[0].platform == "tpu"
-        except Exception:
-            use_tables = False
-    if use_tables:
-        tables = tile_component_tables_pallas(
-            keys_pad, jnp.asarray(org), w_img=w, sent=u * hw
-        )
-        ovf = tables[:, 3, 0].max() > 0
-
-    def _table_path(_):
-        mt = t_n * tables.shape[2]
-        tk = tables[:, 0, :].reshape(1, mt)
-        ta = tables[:, 1, :].reshape(1, mt)
-        tb = jnp.where(
-            tables[:, 0, :] < sent, tables[:, 2, :], brbig
-        ).reshape(1, mt)
-        ks, as_, bs = jax.lax.sort((tk, ta, tb), dimension=1, num_keys=1)
-        tot = jnp.where(ks < sent, as_, 0)
-        brm = jnp.where(ks < sent, bs, brbig)
-        d = 1
-        while d < mt:
-            same = jnp.concatenate(
-                [ks[:, d:] == ks[:, :-d], jnp.zeros((1, d), bool)], axis=1
-            )
-            tot_s = jnp.concatenate(
-                [tot[:, d:], jnp.zeros((1, d), jnp.int32)], axis=1
-            )
-            brm_s = jnp.concatenate(
-                [brm[:, d:], jnp.full((1, d), brbig, jnp.int32)], axis=1
-            )
-            tot = tot + jnp.where(same, tot_s, 0)
-            brm = jnp.minimum(brm, jnp.where(same, brm_s, brbig))
-            d *= 2
-        _, _, knew = _run_geometry(ks)
-        cand = knew & (ks < sent)
-        key_c = jnp.where(cand, ks, sent)[0]
-        area_c = jnp.where(cand, tot, 0)[0]
-        br_c = jnp.where(cand, brm, brbig)[0]
-        return _winner_per_unit(key_c, area_c, br_c, u, hw, sent)
-
-    def _sort_path(_):
-        br_t = tile(br_img, 0).reshape(t_n, thw)
-        keys_f = keys_t.reshape(t_n, thw)
-        svi = jnp.broadcast_to(
-            jnp.arange(thw, dtype=jnp.int32)[None, :], (t_n, thw)
-        )
-
-        # per-tile runs; num_keys=2 puts each run's min block rank at its
-        # start
-        s, br2, si = jax.lax.sort((keys_f, br_t, svi), dimension=1, num_keys=2)
-        run_start, next_start, newrun = _run_geometry(s)
-        run_len = next_start - run_start
-        valid = newrun & (s < sent)
-
-        # ring membership is ARITHMETIC on the carried original index: a
-        # position is on its tile's boundary ring iff its row/col is extremal
-        sr_, sc_ = si // tw, si % tw
-        rf = (
-            (sr_ == 0) | (sr_ == th - 1) | (sc_ == 0) | (sc_ == tw - 1)
-        ).astype(jnp.int32)
-        # run-level ring membership, valid at START positions: reverse cummin
-        # of 2*run_start + (1 - flag) — earlier runs strictly dominate the
-        # suffix min, so at a run's start the min is 2*own_start iff the run
-        # has a ring pixel
-        rcmin = jax.lax.cummin(2 * run_start + (1 - rf), axis=1, reverse=True)
-        ring_any = rcmin == 2 * run_start
-        idxs = svi  # unsorted iota view for the inverse sort below
-
-        # boundary-ring lookup: ring pixel keys -> their runs (searchsorted
-        # 'left' on the sorted keys IS the run start)
-        ring_r = jnp.concatenate(
-            [
-                jnp.zeros((tw,), jnp.int32),
-                jnp.full((tw,), th - 1, jnp.int32),
-                jnp.arange(th, dtype=jnp.int32),
-                jnp.arange(th, dtype=jnp.int32),
-            ]
-        )
-        ring_c = jnp.concatenate(
-            [
-                jnp.arange(tw, dtype=jnp.int32),
-                jnp.arange(tw, dtype=jnp.int32),
-                jnp.zeros((th,), jnp.int32),
-                jnp.full((th,), tw - 1, jnp.int32),
-            ]
-        )
-        r_n = ring_r.shape[0]
-        ring_keys = keys_t[:, ring_r, ring_c]  # [T, R]
-        ring_valid = ring_keys < sent
-        # ring entries' sorted positions via the inverse permutation — a
-        # multi-segment sort where a vmapped searchsorted is a ~27 ms
-        # binary-search while loop at this size. Ring positions are STATIC,
-        # so extracting them from inv is pure border slicing; (run_start,
-        # run_len) ride ONE packed int64 gather.
-        _, inv = jax.lax.sort((si, idxs), dimension=1, num_keys=1)
-        inv2 = inv.reshape(t_n, th, tw)
-        pos_e = jnp.concatenate(
-            [inv2[:, 0, :], inv2[:, th - 1, :], inv2[:, :, 0], inv2[:, :, tw - 1]],
-            axis=1,
-        )
-        rl_pack = (
-            run_start.astype(jnp.int64) * (thw + 1) + run_len.astype(jnp.int64)
-        )
-        rl_r = jnp.take_along_axis(rl_pack, pos_e, axis=1)
-        rs_r = (rl_r // (thw + 1)).astype(jnp.int32)
-        ring_area = (rl_r % (thw + 1)).astype(jnp.int32)
-        ring_br = jnp.take_along_axis(br2, rs_r, axis=1)  # min br at run start
-
-        # interior candidates: best non-ring run per tile
-        cand = valid & ~ring_any
-        area_c = jnp.where(cand, run_len, 0)
-        amax_int = area_c.max(axis=1)
-        br_c = jnp.where(cand & (run_len == amax_int[:, None]), br2, brbig)
-        brmin_int = br_c.min(axis=1)
-        pick = (
-            cand & (run_len == amax_int[:, None]) & (br2 == brmin_int[:, None])
-        )
-        ppos = jnp.argmax(pick, axis=1)
-        int_ok = amax_int > 0
-        int_key = jnp.where(
-            int_ok, jnp.take_along_axis(s, ppos[:, None], axis=1)[:, 0], sent
-        )
-        int_area = jnp.where(int_ok, amax_int, 0)
-        int_br = jnp.where(int_ok, brmin_int, brbig)
-
-        # ring aggregation table, sorted ONCE with a key-major composite: the
-        # same order both dedups (root, tile) pairs (adjacent) and groups
-        # entries per root (contiguous runs)
-        m = t_n * r_n
-        tgrid32 = jnp.broadcast_to(
-            jnp.arange(t_n, dtype=jnp.int32)[:, None], (t_n, r_n)
-        )
-        dsent = jnp.int64(2**62)
-        dkey = jnp.where(
-            ring_valid,
-            ring_keys.astype(jnp.int64) * t_n + tgrid32.astype(jnp.int64),
-            dsent,
-        ).reshape(1, m)
-        # (area, br) ride the sort as ONE packed int64 payload
-        pay = (
-            jnp.where(ring_valid, ring_area, 0).astype(jnp.int64) * (2**31)
-            + jnp.where(ring_valid, ring_br, brbig).astype(jnp.int64)
-        ).reshape(1, m)
-        dk_s, pay_s = jax.lax.sort((dkey, pay), dimension=1, num_keys=1)
-        k2 = jnp.where(dk_s < dsent, (dk_s // t_n).astype(jnp.int32), sent)
-        _, _, dnew = _run_geometry(dk_s)
-        uniq = dnew & (dk_s < dsent)
-        a_u = jnp.where(uniq, (pay_s >> 31).astype(jnp.int32), 0)
-        b_u = jnp.where(
-            uniq, (pay_s % (2**31)).astype(jnp.int32), brbig
-        )
-
-        # per-root suffix aggregates via log-tree shifted ops (int32; areas
-        # and their per-root sums are bounded by hw). Duplicate (root, tile)
-        # entries ride along neutralized, so the doubling bound is the table.
-        tot = a_u
-        brm = b_u
-        d = 1
-        while d < m:
-            same = jnp.concatenate(
-                [k2[:, d:] == k2[:, :-d], jnp.zeros((1, d), bool)], axis=1
-            )
-            tot_s = jnp.concatenate(
-                [tot[:, d:], jnp.zeros((1, d), jnp.int32)], axis=1
-            )
-            brm_s = jnp.concatenate(
-                [brm[:, d:], jnp.full((1, d), brbig, jnp.int32)], axis=1
-            )
-            tot = tot + jnp.where(same, tot_s, 0)
-            brm = jnp.minimum(brm, jnp.where(same, brm_s, brbig))
-            d *= 2
-
-        _, _, knew = _run_geometry(k2)
-        ring_cand = knew & (k2 < sent)
-        ring_key_c = jnp.where(ring_cand, k2, sent)[0]
-        ring_area_c = jnp.where(ring_cand, tot, 0)[0]
-        ring_br_c = jnp.where(ring_cand, brm, brbig)[0]
-
-        all_key = jnp.concatenate([int_key, ring_key_c])
-        all_area = jnp.concatenate([int_area, ring_area_c])
-        all_br = jnp.concatenate([int_br, ring_br_c])
-        return _winner_per_unit(all_key, all_area, all_br, u, hw, sent)
-
-    if use_tables:
-        win_label = jax.lax.cond(ovf, _sort_path, _table_path, jnp.int32(0))
-    else:
-        win_label = _sort_path(jnp.int32(0))
-
-    best_mask = fg & (labels == win_label[:, None, None])
-    area = best_mask.sum(axis=(1, 2), dtype=jnp.int32)
-    sum_dtype = jnp.int32 if max(h, w) * hw < 2**31 else jnp.int64
-    sx = jnp.where(best_mask, xx, 0).sum(axis=(1, 2), dtype=sum_dtype)
-    sy = jnp.where(best_mask, yy, 0).sum(axis=(1, 2), dtype=sum_dtype)
-    has_fg = fg.any(axis=(1, 2))
-    return best_mask, area, sx, sy, has_fg
-
-
 def largest_component(fg: jnp.ndarray):
     """Largest 8-connected component per unit, with the f64 mean centroid.
 
     Returns (mask [U,H,W] bool, area [U] int32, centroid [U,2] f64 (cx, cy),
     has_fg [U] bool); centroid is (0, 0) when the unit has no foreground.
 
-    NOTE: the division runs on-device; on TPU, float64 is emulated and the
-    quotient can be a few ulps off correctly-rounded. Use
-    :func:`largest_component_sums` + host division when the centroid is
-    persisted or compared bit-exactly (alignment anchors do this).
+    The division runs on the device in IEEE float64, which rounds exactly
+    like numpy's mean of the same integer sums.
     """
     best_mask, area, sx, sy, has_fg = largest_component_sums(fg)
     cnt = jnp.maximum(area, 1).astype(jnp.float64)

@@ -15,18 +15,3 @@ def as_odd(k: int) -> int:
     k = int(k)
     return k if k % 2 == 1 else k + 1
 
-
-def fused_disabled() -> bool:
-    """Kill switch for the fused stage kernels (compile-failure fallback).
-
-    When TPU_INSPECT_DISABLE_FUSED is set, the fused-stage gates
-    (ops.fused_pallas.tail_fits, ops.blob_pallas.blob_filter_fits,
-    ops.cc_pallas.fused_stats_fits) report False and the pipeline runs on
-    the individually proven split kernels. bench.py and __graft_entry__
-    set it automatically when a compile raises, so one misbehaving Mosaic
-    lowering degrades performance instead of failing the run (read at
-    trace time — pair with jax.clear_caches()).
-    """
-    import os
-
-    return bool(os.environ.get("TPU_INSPECT_DISABLE_FUSED"))

@@ -40,7 +40,7 @@ import numpy as np
 
 from tpu_inspect.ops import cc
 from tpu_inspect.ops._contour_table import CONTOUR_TABLE_X2
-from tpu_inspect.ops.hole_fill import exterior_background
+from tpu_inspect.ops.hole_fill import exterior_background, propagate8
 
 
 @dataclass
@@ -114,9 +114,9 @@ def analyze_blobs(fg: jnp.ndarray) -> BlobAnalysis:
         ext = exterior_background(fg)
     fill = ~ext
     with jax.named_scope("label_fill"):
-        fill_labels = cc.label_components(fill, plan="rc")
+        fill_labels = cc.label_components(fill)
     with jax.named_scope("label_fg"):
-        fg_labels = cc.label_components(fg, plan="rc")
+        fg_labels = cc.label_components(fg)
     top = fg & (fg_labels == fill_labels)
     attr, contrib = _vertex_attribution(top, ext, fill_labels)
 
@@ -149,44 +149,11 @@ def select_blobs(analysis: BlobAnalysis, keep: jnp.ndarray) -> jnp.ndarray:
 
     Implementation: the kept roots are turned into 2D seed pixels (a root
     IS its own linear position) and flood-propagated through their fill
-    regions — a couple of cheap sweep iterations instead of a per-pixel
-    [U, H*W] gather (TPU gathers at that size are ~100x slower).
+    regions instead of a per-pixel [U, H*W] gather.
     """
-    from tpu_inspect.ops.flood_pallas import (
-        flood_fits,
-        flood_fits_tiled,
-        propagate_pallas,
-        propagate_pallas_tiled,
-    )
-    from tpu_inspect.ops.hole_fill import _axis_sweep
-
     u, h, w = analysis.fill_mask.shape
-    fill = analysis.fill_mask
     seeds = (keep & analysis.is_root).reshape(u, h, w)
-    if flood_fits((u, h, w)):
-        return propagate_pallas(seeds, fill, conn8=True)
-    if flood_fits_tiled((u, h, w)):
-        # whole-image planes: halo-exchanging strip sweeps
-        return propagate_pallas_tiled(seeds, fill, conn8=True)
-
-    def dilate8(m):
-        p = jnp.pad(m, ((0, 0), (1, 1), (1, 1)))
-        return jax.lax.reduce_window(
-            p, False, jax.lax.bitwise_or, (1, 3, 3), (1, 1, 1), "VALID"
-        )
-
-    def cond(state):
-        return state[1]
-
-    def body(state):
-        reach, _ = state
-        new = dilate8(reach) & fill
-        new = _axis_sweep(new, fill, axis=2)
-        new = _axis_sweep(new, fill, axis=1)
-        return new, (new != reach).any()
-
-    reach, _ = jax.lax.while_loop(cond, body, (seeds & fill, jnp.bool_(True)))
-    return reach
+    return propagate8(seeds, analysis.fill_mask)
 
 
 def _green_filter_tiled(
@@ -197,21 +164,18 @@ def _green_filter_tiled(
     min_area_x2,
     max_area_x2: jnp.ndarray,
     tile_vhw: tuple[int, int] | None = None,
-    use_tables: bool | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Per-blob Green's-sum filter for whole-image vertex planes.
 
     Replaces filter_and_select's single global sort-by-attribution for
-    planes where (nv+1)*2*bias >= 2^31. Two structural problems at that
-    size: a single-segment [1, ~12M] sort costs ~266 ms on v5e (vs ~20 ms
-    for the same elements in [T, 64k] per-tile segments), and the int64
-    monotone-prefix scans the area sums would need lower to emulated
-    (u32,u32)-pair reduce-windows that exceed the 16 MB scoped-VMEM budget
-    inside fori_loop chains.
+    planes where (nv+1)*2*bias >= 2^31, i.e. where the biased int32
+    monotone prefix of the global path would overflow. Tiles are sized so
+    every in-tile prefix stays below 2^30, and only small per-key tables
+    need int64.
 
-    Same exactness argument as cc.largest_component_sums_tiled, applied to
-    the vertex plane: a blob's attributed vertex set (the union of the 2x2
-    vertex squares of its 8-connected pixel set) is itself 8-connected, so
+    Exactness, on the vertex plane: a blob's attributed vertex set (the
+    union of the 2x2 vertex squares of its 8-connected pixel set) is itself
+    8-connected, so
     if it spans a tile cut it has vertices on BOTH tiles' boundary rings.
     Therefore per-tile runs whose key is absent from their tile's ring are
     whole blobs (local signed Green's sum is the exact total), and every
@@ -259,284 +223,186 @@ def _green_filter_tiled(
 
     keys_t = tile(key_img, gsent_i)
 
-    # ---- sort-free front end: per-tile (key, signed Green's sum) tables
-    # from a Pallas kernel + a per-tile paint kernel for the kept keys.
-    # Mold-style vertex planes hold a handful of blobs per tile, so the
-    # masked-sum enumeration replaces the [T, s] segment sorts; tiles with
-    # > 128 distinct keys fall back to the exact sort path at runtime.
-    # ``use_tables`` None = auto (TPU only: the front end is a Pallas
-    # kernel; the sort path is pure XLA and serves the CPU backend).
-    from tpu_inspect.ops.cc_pallas import (
-        tile_paint_pallas,
-        tile_sum_tables_pallas,
+    con_f = tile(contrib, 0).reshape(t_n, s)
+    keys_f = keys_t.reshape(t_n, s)
+    svi = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None, :], (t_n, s))
+
+    # per-tile grouping: all vertices of key k in tile t form ONE run
+    sk, sv, si = jax.lax.sort((keys_f, con_f, svi), dimension=1, num_keys=1)
+    run_start, next_start, newrun = _run_geometry(sk)
+    idxs = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None, :], (t_n, s))
+    is_end = jnp.concatenate([newrun[:, 1:], jnp.ones((t_n, 1), bool)], axis=1)
+
+    # ring membership is ARITHMETIC on the carried original index (no
+    # extra sort operand): a position is on its tile's boundary ring iff
+    # its row or column is extremal
+    sr, sc = si // tvw, si % tvw
+    rf = (
+        (sr == 0) | (sr == tvh - 1) | (sc == 0) | (sc == tvw - 1)
+    ).astype(jnp.int32)
+    # run-level ring membership, valid at END positions: forward cummax of
+    # 2*run_start + flag — later runs strictly dominate, so at a run's end
+    # the max is 2*own_start + OR(flag over the run)
+    fmax = jax.lax.cummax(2 * run_start + rf, axis=1)
+    ring_any = (fmax & 1) == 1
+
+    # in-tile monotone prefix (int32 by tile-size construction)
+    p = jnp.cumsum(sv + bias, axis=1, dtype=jnp.int32)
+    end_vals = jnp.where(is_end, p, jnp.int32(-1))
+    prev_end = jax.lax.cummax(
+        jnp.concatenate(
+            [jnp.full((t_n, 1), -1, jnp.int32), end_vals[:, :-1]], axis=1
+        ),
+        axis=1,
+    )
+    prev_end = jnp.maximum(prev_end, 0)
+    total = p - prev_end - (idxs - run_start + 1) * bias  # signed, at ends
+
+    # boundary ring: every cross-tile blob has ring vertices in each tile
+    rr = jnp.concatenate(
+        [
+            jnp.zeros((tvw,), jnp.int32),
+            jnp.full((tvw,), tvh - 1, jnp.int32),
+            jnp.arange(tvh, dtype=jnp.int32),
+            jnp.arange(tvh, dtype=jnp.int32),
+        ]
+    )
+    rc = jnp.concatenate(
+        [
+            jnp.arange(tvw, dtype=jnp.int32),
+            jnp.arange(tvw, dtype=jnp.int32),
+            jnp.zeros((tvh,), jnp.int32),
+            jnp.full((tvh,), tvw - 1, jnp.int32),
+        ]
+    )
+    r_n = rr.shape[0]
+    ring_keys = keys_t[:, rr, rc]
+    ring_valid = ring_keys < gsent
+    # ring entries' sorted positions come from the inverse permutation
+    # (one multi-segment sort) instead of a vmapped searchsorted, which
+    # lowers to a binary-search while loop. Ring positions are STATIC, so
+    # extracting them from inv is pure border slicing.
+    _, inv = jax.lax.sort((si, idxs), dimension=1, num_keys=1)
+    inv2 = inv.reshape(t_n, tvh, tvw)
+    pos_r = jnp.concatenate(
+        [inv2[:, 0, :], inv2[:, tvh - 1, :], inv2[:, :, 0], inv2[:, :, tvw - 1]],
+        axis=1,
+    )
+    ring_end = jnp.take_along_axis(next_start, pos_r, axis=1) - 1
+    ring_par = jnp.take_along_axis(total, ring_end, axis=1)  # partial sum
+
+    # global (tile, key) table, sorted ONCE with a key-major composite:
+    # the same order both dedups (key, tile) pairs (adjacent) and groups
+    # entries per key (contiguous runs), so one 2-operand sort and tiny
+    # gathers replace two single-segment sorts
+    m = t_n * r_n
+    if t_n >= 1 << 13 or s >= 1 << 18:
+        raise ValueError("tile grid too large for packed ring table")
+    tgrid32 = jnp.broadcast_to(
+        jnp.arange(t_n, dtype=jnp.int32)[:, None], (t_n, r_n)
+    )
+    dsent = jnp.int64(2**62)
+    dkey = jnp.where(
+        ring_valid,
+        ring_keys.astype(jnp.int64) * t_n + tgrid32.astype(jnp.int64),
+        dsent,
+    ).reshape(1, m)
+    # one sorted gather of a packed (partial, endpos, tile) int64 instead
+    # of three separate permutation gathers
+    pack = (
+        (jnp.where(ring_valid, ring_par, 0).astype(jnp.int64) + 2**30)
+        * jnp.int64(2**31)
+        + jnp.where(ring_valid, ring_end, jnp.int32(s)).astype(jnp.int64)
+        * jnp.int64(1 << 13)
+        + tgrid32.astype(jnp.int64)
+    ).reshape(1, m)
+    dk_s, pk_s = jax.lax.sort((dkey, pack), dimension=1, num_keys=1)
+    gk2 = jnp.where(
+        dk_s < dsent, (dk_s // t_n).astype(jnp.int32), gsent
+    )
+    t2 = (pk_s % (1 << 13)).astype(jnp.int32)
+    e2 = ((pk_s >> 13) % (1 << 18)).astype(jnp.int32)
+    p2r = ((pk_s >> 31) - 2**30).astype(jnp.int32)
+    _, _, dnew = _run_geometry(dk_s)
+    uniq = dnew & (dk_s < dsent)
+    p_u = jnp.where(uniq, p2r, 0)
+
+    # per-key suffix-sum via log-tree shifted adds (elementwise int64 is
+    # fine — only int64 SCANS are forbidden; duplicate (key,tile) entries
+    # ride along zeroed, so the doubling bound is the table size)
+    ssum = p_u.astype(jnp.int64)
+    d = 1
+    while d < m:
+        same = jnp.concatenate(
+            [gk2[:, d:] == gk2[:, :-d], jnp.zeros((1, d), bool)], axis=1
+        )
+        shifted = jnp.concatenate(
+            [ssum[:, d:], jnp.zeros((1, d), jnp.int64)], axis=1
+        )
+        ssum = ssum + jnp.where(same, shifted, 0)
+        d *= 2
+
+    _, _, gnew = _run_geometry(gk2)
+    sabs = jnp.abs(ssum)
+    unit_e = jnp.clip(gk2 // gsize, 0, u - 1)
+    maxa_e = max_area_x2[unit_e]
+    dec = gnew & (gk2 < gsent) & (sabs >= min_area_x2) & (sabs <= maxa_e)
+    # fill the start-decision forward through the run (doubling OR)
+    d = 1
+    while d < m:
+        prev_same = jnp.concatenate(
+            [jnp.zeros((1, d), bool), gk2[:, :-d] == gk2[:, d:]], axis=1
+        )
+        prev_dec = jnp.concatenate(
+            [jnp.zeros((1, d), bool), dec[:, :-d]], axis=1
+        )
+        dec = dec | (prev_same & prev_dec)
+        d *= 2
+
+    # scatter per-(tile,key) decisions to their runs' END positions
+    # (duplicates write the same value; invalid entries hit the spill slot)
+    lin = t2 * (s + 1) + jnp.minimum(e2, s)
+    ring_dec = (
+        jnp.zeros((t_n * (s + 1),), jnp.int32)
+        .at[lin[0]]
+        .max(dec[0].astype(jnp.int32))
+        .reshape(t_n, s + 1)[:, :s]
+        > 0
     )
 
-    if use_tables is None:
-        try:
-            use_tables = jax.devices()[0].platform == "tpu"
-        except Exception:
-            use_tables = False
-
-    thp_ = -(-tvh // 8) * 8
-    twp_ = -(-tvw // 128) * 128
-    keys_pad = jnp.pad(
-        keys_t,
-        ((0, 0), (0, thp_ - tvh), (0, twp_ - tvw)),
-        constant_values=gsent_i,
+    # interior runs decide locally; ring runs use the global table
+    valid_end = is_end & (sk < gsent)
+    tidx = jnp.arange(t_n, dtype=jnp.int32) // (nh * nw)
+    maxa_t = max_area_x2[tidx][:, None]
+    area_l = jnp.abs(total)
+    dec_local = (
+        valid_end
+        & ~ring_any
+        & (area_l >= min_area_x2)
+        & (area_l <= maxa_t)
     )
-    pay_pad = jnp.pad(
-        tile(contrib, 0), ((0, 0), (0, thp_ - tvh), (0, twp_ - tvw))
+    dec_end = dec_local | (ring_any & ring_dec & valid_end)
+    found = (
+        dec_end.any(axis=1).reshape(u, nh * nw).any(axis=1)
     )
-    if use_tables:
-        tables = tile_sum_tables_pallas(keys_pad, pay_pad, sent=gsent_i)
-        ovf = tables[:, 3, 0].max() > 0
 
-    def _table_paint(_):
-        mt = t_n * tables.shape[2]
-        tk = tables[:, 0, :].reshape(1, mt)
-        tsum = tables[:, 1, :].reshape(1, mt)
-        io0 = jnp.arange(mt, dtype=jnp.int32)[None, :]
-        ks, ss, io = jax.lax.sort((tk, tsum, io0), dimension=1, num_keys=1)
-        ssum = jnp.where(ks < gsent, ss, 0).astype(jnp.int64)
-        d = 1
-        while d < mt:
-            same = jnp.concatenate(
-                [ks[:, d:] == ks[:, :-d], jnp.zeros((1, d), bool)], axis=1
-            )
-            shifted = jnp.concatenate(
-                [ssum[:, d:], jnp.zeros((1, d), jnp.int64)], axis=1
-            )
-            ssum = ssum + jnp.where(same, shifted, 0)
-            d *= 2
-        _, _, knew = _run_geometry(ks)
-        sabs = jnp.abs(ssum)
-        unit_e = jnp.clip(ks // gsize, 0, u - 1)
-        maxa_e = max_area_x2[unit_e]
-        dec = (
-            knew
-            & (ks < gsent)
-            & (sabs >= min_area_x2)
-            & (sabs <= maxa_e.astype(jnp.int64))
-        )
-        d = 1
-        while d < mt:
-            prev_same = jnp.concatenate(
-                [jnp.zeros((1, d), bool), ks[:, :-d] == ks[:, d:]], axis=1
-            )
-            prev_dec = jnp.concatenate(
-                [jnp.zeros((1, d), bool), dec[:, :-d]], axis=1
-            )
-            dec = dec | (prev_same & prev_dec)
-            d *= 2
-        found_t = (
-            ((jnp.arange(u, dtype=jnp.int32)[:, None] == unit_e[0][None, :])
-             & dec[0][None, :])
-            .any(axis=1)
-        )
-        # un-sort the per-row decisions back to table order, paint per tile
-        _, dec_un = jax.lax.sort(
-            (io, dec.astype(jnp.int32)), dimension=1, num_keys=1
-        )
-        dec_tbl = dec_un.reshape(t_n, tables.shape[2])
-        keep = jnp.zeros((t_n, 8, 128), jnp.int32)
-        keep = keep.at[:, 0, :].set(tables[:, 0, :])
-        keep = keep.at[:, 1, :].set(dec_tbl)
-        masks_t = tile_paint_pallas(keys_pad, keep, sent=gsent_i)
-        kv_t = (
-            masks_t[:, :tvh, :tvw]
-            .reshape(u, nh, nw, tvh, tvw)
-            .transpose(0, 1, 3, 2, 4)
-            .reshape(u, nh * tvh, nw * tvw)[:, :vh, :vw]
-            > 0
-        )
-        return kv_t, found_t
-
-    def _sort_paint(_):
-
-        con_f = tile(contrib, 0).reshape(t_n, s)
-        keys_f = keys_t.reshape(t_n, s)
-        svi = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None, :], (t_n, s))
-
-        # per-tile grouping: all vertices of key k in tile t form ONE run
-        sk, sv, si = jax.lax.sort((keys_f, con_f, svi), dimension=1, num_keys=1)
-        run_start, next_start, newrun = _run_geometry(sk)
-        idxs = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[None, :], (t_n, s))
-        is_end = jnp.concatenate([newrun[:, 1:], jnp.ones((t_n, 1), bool)], axis=1)
-
-        # ring membership is ARITHMETIC on the carried original index (no
-        # extra sort operand): a position is on its tile's boundary ring iff
-        # its row or column is extremal
-        sr, sc = si // tvw, si % tvw
-        rf = (
-            (sr == 0) | (sr == tvh - 1) | (sc == 0) | (sc == tvw - 1)
-        ).astype(jnp.int32)
-        # run-level ring membership, valid at END positions: forward cummax of
-        # 2*run_start + flag — later runs strictly dominate, so at a run's end
-        # the max is 2*own_start + OR(flag over the run)
-        fmax = jax.lax.cummax(2 * run_start + rf, axis=1)
-        ring_any = (fmax & 1) == 1
-
-        # in-tile monotone prefix (int32 by tile-size construction)
-        p = jnp.cumsum(sv + bias, axis=1, dtype=jnp.int32)
-        end_vals = jnp.where(is_end, p, jnp.int32(-1))
-        prev_end = jax.lax.cummax(
-            jnp.concatenate(
-                [jnp.full((t_n, 1), -1, jnp.int32), end_vals[:, :-1]], axis=1
-            ),
-            axis=1,
-        )
-        prev_end = jnp.maximum(prev_end, 0)
-        total = p - prev_end - (idxs - run_start + 1) * bias  # signed, at ends
-
-        # boundary ring: every cross-tile blob has ring vertices in each tile
-        rr = jnp.concatenate(
-            [
-                jnp.zeros((tvw,), jnp.int32),
-                jnp.full((tvw,), tvh - 1, jnp.int32),
-                jnp.arange(tvh, dtype=jnp.int32),
-                jnp.arange(tvh, dtype=jnp.int32),
-            ]
-        )
-        rc = jnp.concatenate(
-            [
-                jnp.arange(tvw, dtype=jnp.int32),
-                jnp.arange(tvw, dtype=jnp.int32),
-                jnp.zeros((tvh,), jnp.int32),
-                jnp.full((tvh,), tvw - 1, jnp.int32),
-            ]
-        )
-        r_n = rr.shape[0]
-        ring_keys = keys_t[:, rr, rc]
-        ring_valid = ring_keys < gsent
-        # ring entries' sorted positions come from the inverse permutation
-        # (one multi-segment sort) instead of a vmapped searchsorted — the
-        # binary-search while loop cost ~48 ms at this size. Ring positions
-        # are STATIC, so extracting them from inv is pure border slicing.
-        _, inv = jax.lax.sort((si, idxs), dimension=1, num_keys=1)
-        inv2 = inv.reshape(t_n, tvh, tvw)
-        pos_r = jnp.concatenate(
-            [inv2[:, 0, :], inv2[:, tvh - 1, :], inv2[:, :, 0], inv2[:, :, tvw - 1]],
-            axis=1,
-        )
-        ring_end = jnp.take_along_axis(next_start, pos_r, axis=1) - 1
-        ring_par = jnp.take_along_axis(total, ring_end, axis=1)  # partial sum
-
-        # global (tile, key) table, sorted ONCE with a key-major composite:
-        # the same order both dedups (key, tile) pairs (adjacent) and groups
-        # entries per key (contiguous runs) — two single-segment sorts were
-        # ~35 ms here; one 2-operand sort + tiny gathers is ~5 ms
-        m = t_n * r_n
-        if t_n >= 1 << 13 or s >= 1 << 18:
-            raise ValueError("tile grid too large for packed ring table")
-        tgrid32 = jnp.broadcast_to(
-            jnp.arange(t_n, dtype=jnp.int32)[:, None], (t_n, r_n)
-        )
-        dsent = jnp.int64(2**62)
-        dkey = jnp.where(
-            ring_valid,
-            ring_keys.astype(jnp.int64) * t_n + tgrid32.astype(jnp.int64),
-            dsent,
-        ).reshape(1, m)
-        # one sorted gather of a packed (partial, endpos, tile) int64 instead
-        # of three separate permutation gathers
-        pack = (
-            (jnp.where(ring_valid, ring_par, 0).astype(jnp.int64) + 2**30)
-            * jnp.int64(2**31)
-            + jnp.where(ring_valid, ring_end, jnp.int32(s)).astype(jnp.int64)
-            * jnp.int64(1 << 13)
-            + tgrid32.astype(jnp.int64)
-        ).reshape(1, m)
-        dk_s, pk_s = jax.lax.sort((dkey, pack), dimension=1, num_keys=1)
-        gk2 = jnp.where(
-            dk_s < dsent, (dk_s // t_n).astype(jnp.int32), gsent
-        )
-        t2 = (pk_s % (1 << 13)).astype(jnp.int32)
-        e2 = ((pk_s >> 13) % (1 << 18)).astype(jnp.int32)
-        p2r = ((pk_s >> 31) - 2**30).astype(jnp.int32)
-        _, _, dnew = _run_geometry(dk_s)
-        uniq = dnew & (dk_s < dsent)
-        p_u = jnp.where(uniq, p2r, 0)
-
-        # per-key suffix-sum via log-tree shifted adds (elementwise int64 is
-        # fine — only int64 SCANS are forbidden; duplicate (key,tile) entries
-        # ride along zeroed, so the doubling bound is the table size)
-        ssum = p_u.astype(jnp.int64)
-        d = 1
-        while d < m:
-            same = jnp.concatenate(
-                [gk2[:, d:] == gk2[:, :-d], jnp.zeros((1, d), bool)], axis=1
-            )
-            shifted = jnp.concatenate(
-                [ssum[:, d:], jnp.zeros((1, d), jnp.int64)], axis=1
-            )
-            ssum = ssum + jnp.where(same, shifted, 0)
-            d *= 2
-
-        _, _, gnew = _run_geometry(gk2)
-        sabs = jnp.abs(ssum)
-        unit_e = jnp.clip(gk2 // gsize, 0, u - 1)
-        maxa_e = max_area_x2[unit_e]
-        dec = gnew & (gk2 < gsent) & (sabs >= min_area_x2) & (sabs <= maxa_e)
-        # fill the start-decision forward through the run (doubling OR)
-        d = 1
-        while d < m:
-            prev_same = jnp.concatenate(
-                [jnp.zeros((1, d), bool), gk2[:, :-d] == gk2[:, d:]], axis=1
-            )
-            prev_dec = jnp.concatenate(
-                [jnp.zeros((1, d), bool), dec[:, :-d]], axis=1
-            )
-            dec = dec | (prev_same & prev_dec)
-            d *= 2
-
-        # scatter per-(tile,key) decisions to their runs' END positions
-        # (duplicates write the same value; invalid entries hit the spill slot)
-        lin = t2 * (s + 1) + jnp.minimum(e2, s)
-        ring_dec = (
-            jnp.zeros((t_n * (s + 1),), jnp.int32)
-            .at[lin[0]]
-            .max(dec[0].astype(jnp.int32))
-            .reshape(t_n, s + 1)[:, :s]
-            > 0
-        )
-
-        # interior runs decide locally; ring runs use the global table
-        valid_end = is_end & (sk < gsent)
-        tidx = jnp.arange(t_n, dtype=jnp.int32) // (nh * nw)
-        maxa_t = max_area_x2[tidx][:, None]
-        area_l = jnp.abs(total)
-        dec_local = (
-            valid_end
-            & ~ring_any
-            & (area_l >= min_area_x2)
-            & (area_l <= maxa_t)
-        )
-        dec_end = dec_local | (ring_any & ring_dec & valid_end)
-        found = (
-            dec_end.any(axis=1).reshape(u, nh * nw).any(axis=1)
-        )
-
-        # broadcast run-wide (reverse cummin of 2*end_idx + decision), invert
-        # the per-tile sort, un-tile
-        end_code = jnp.where(
-            is_end, 2 * idxs + dec_end.astype(jnp.int32), jnp.int32(2**30)
-        )
-        my_end = jax.lax.cummin(end_code, axis=1, reverse=True)
-        dec_all = (my_end & 1) == 1
-        _, dec_orig = jax.lax.sort(
-            (si, dec_all.astype(jnp.int32)), dimension=1, num_keys=1
-        )
-        kv = (
-            dec_orig.reshape(u, nh, nw, tvh, tvw)
-            .transpose(0, 1, 3, 2, 4)
-            .reshape(u, nh * tvh, nw * tvw)[:, :vh, :vw]
-            > 0
-        )
-        return kv, found
-
-    if not use_tables:
-        return _sort_paint(jnp.int32(0))
-    return jax.lax.cond(ovf, _sort_paint, _table_paint, jnp.int32(0))
+    # broadcast run-wide (reverse cummin of 2*end_idx + decision), invert
+    # the per-tile sort, un-tile
+    end_code = jnp.where(
+        is_end, 2 * idxs + dec_end.astype(jnp.int32), jnp.int32(2**30)
+    )
+    my_end = jax.lax.cummin(end_code, axis=1, reverse=True)
+    dec_all = (my_end & 1) == 1
+    _, dec_orig = jax.lax.sort(
+        (si, dec_all.astype(jnp.int32)), dimension=1, num_keys=1
+    )
+    kv = (
+        dec_orig.reshape(u, nh, nw, tvh, tvw)
+        .transpose(0, 1, 3, 2, 4)
+        .reshape(u, nh * tvh, nw * tvw)[:, :vh, :vw]
+        > 0
+    )
+    return kv, found
 
 
 def filter_and_select(
@@ -547,10 +413,9 @@ def filter_and_select(
     ``min_area_x2`` is a scalar, ``max_area_x2`` a [U] vector (both in
     2*contourArea units). Returns (out_mask [U, H, W] bool, found [U] bool)
     with drawContours(-1)-of-kept-external-contours semantics, exactly like
-    analyze_blobs + select_blobs but ~2.5x cheaper on TPU:
+    analyze_blobs + select_blobs:
 
-    - vertices are sorted by blob attribution (sorts are ~6 ms where
-      scatters are ~40 ms on v5e),
+    - vertices are sorted by blob attribution (no scatter-add),
     - per-run Green's sums come from a MONOTONIC prefix (contributions
       biased by a constant so the cumsum only grows -> plain int32 cummax
       broadcasts the previous run boundary, no 64-bit packing),
@@ -561,62 +426,15 @@ def filter_and_select(
     - kept vertices seed the flood fill over the fill regions.
     """
     from tpu_inspect.ops.cc import _run_geometry
-    from tpu_inspect.ops.hole_fill import _axis_sweep, exterior_background
 
     u, h, w = fg.shape
     hw = h * w
 
-    from tpu_inspect.ops.blob_pallas import (
-        blob_filter_fits,
-        blob_filter_pallas,
-        blob_select_fits,
-        blob_select_pallas,
-    )
-
-    if blob_filter_fits(fg.shape) and isinstance(min_area_x2, int):
-        # TPU: the WHOLE stage (exterior flood, fill labeling, top-blob
-        # reachability, Green's filter + paint) as one per-unit VMEM kernel
-        out, area = blob_filter_pallas(
-            fg, jnp.asarray(max_area_x2, dtype=jnp.int32), min_x2=min_area_x2
-        )
-        return out > 0, area > 0
-
     ext = exterior_background(fg)
     fill = ~ext
-    fill_labels = cc.label_components(fill, plan="rc")
-    from tpu_inspect.ops.flood_pallas import flood_fits_tiled
-
-    if flood_fits_tiled((u, h, w)):
-        # top-level blobs are fg-reachability from fill-region roots (a
-        # fill region's raster-first pixel is always fg) — the same
-        # argument the per-unit blob kernel uses. The strip-tiled flood
-        # replaces a SECOND whole-plane labeling + global fixpoint.
-        from tpu_inspect.ops.flood_pallas import propagate_pallas_tiled
-
-        lin2 = (
-            jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 1) * w
-            + jax.lax.broadcasted_iota(jnp.int32, (u, h, w), 2)
-        )
-        top = propagate_pallas_tiled(
-            fg & (fill_labels == lin2), fg, conn8=True
-        )
-    else:
-        fg_labels = cc.label_components(fg, plan="rc")
-        top = fg & (fg_labels == fill_labels)
-
-    if blob_select_fits(fg.shape) and isinstance(min_area_x2, int):
-        # TPU: sequential-over-blobs VMEM reduction — no sorts, no final
-        # flood (kept blobs paint their whole fill region directly)
-        out = blob_select_pallas(
-            fill_labels,
-            top,
-            ext,
-            jnp.asarray(max_area_x2, dtype=jnp.int32),
-            min_x2=min_area_x2,
-            h=h,
-            w=w,
-        )
-        return out, out.any(axis=(1, 2))
+    fill_labels = cc.label_components(fill)
+    fg_labels = cc.label_components(fg)
+    top = fg & (fg_labels == fill_labels)
 
     attr, contrib = _vertex_attribution(top, ext, fill_labels)
 
@@ -625,11 +443,8 @@ def filter_and_select(
     big = (nv + 1) * (2 * bias)
 
     if big >= 2**31:
-        # Whole-image planes: a single-segment [1, nv~12M] sort costs
-        # ~266 ms on v5e where the same elements in [T, 64k] per-tile
-        # segments sort in ~20 ms, and the emulated-int64 prefix scans the
-        # monotone trick would need blow the 16 MB scoped-VMEM budget
-        # inside fori_loop chains. Route to the tiled Green's filter.
+        # whole-image planes: the int32 monotone prefix would overflow, so
+        # the Green's sums run per tile (_green_filter_tiled)
         kv, found = _green_filter_tiled(
             attr, contrib, hw, bias, min_area_x2, max_area_x2
         )
@@ -684,34 +499,4 @@ def filter_and_select(
     seeds = top & (
         kv[:, :-1, :-1] | kv[:, :-1, 1:] | kv[:, 1:, :-1] | kv[:, 1:, 1:]
     )
-
-    from tpu_inspect.ops.flood_pallas import (
-        flood_fits,
-        flood_fits_tiled,
-        propagate_pallas,
-        propagate_pallas_tiled,
-    )
-
-    if flood_fits((u, h, w)):
-        out = propagate_pallas(seeds, fill, conn8=True)
-    elif flood_fits_tiled((u, h, w)):
-        out = propagate_pallas_tiled(seeds, fill, conn8=True)
-    else:
-        def dilate8(m):
-            p = jnp.pad(m, ((0, 0), (1, 1), (1, 1)))
-            return jax.lax.reduce_window(
-                p, False, jax.lax.bitwise_or, (1, 3, 3), (1, 1, 1), "VALID"
-            )
-
-        def cond(state):
-            return state[1]
-
-        def body(state):
-            reach, _ = state
-            new = dilate8(reach) & fill
-            new = _axis_sweep(new, fill, axis=2)
-            new = _axis_sweep(new, fill, axis=1)
-            return new, (new != reach).any()
-
-        out, _ = jax.lax.while_loop(cond, body, (seeds & fill, jnp.bool_(True)))
-    return out, found
+    return propagate8(seeds, fill), found

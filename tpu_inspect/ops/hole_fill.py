@@ -57,28 +57,12 @@ def exterior_background(fg: jnp.ndarray) -> jnp.ndarray:
     free = ~fg
     h, w = fg.shape[-2], fg.shape[-1]
 
-    from tpu_inspect.ops.flood_pallas import (
-        flood_fits,
-        flood_fits_tiled,
-        propagate_pallas,
-        propagate_pallas_tiled,
-    )
-
-    if flood_fits(fg.shape):
-        # the border seed is generated inside the kernel (a materialized
-        # [U, H, W] border constant costs ~1.4 ms in HBM copies)
-        return propagate_pallas(None, free, conn8=False, border_seed=True)
-
     border = jnp.zeros(fg.shape, dtype=bool)
     border = border.at[..., 0, :].set(True)
     border = border.at[..., h - 1, :].set(True)
     border = border.at[..., :, 0].set(True)
     border = border.at[..., :, w - 1].set(True)
     seed = border & free
-    if flood_fits_tiled(fg.shape):
-        # plane exceeds VMEM (e.g. one whole-image 4096x3000 crop):
-        # halo-exchanging strip sweeps keep the fixpoint on-chip
-        return propagate_pallas_tiled(seed, free, conn8=False)
 
     def cond(state):
         reach, changed = state
@@ -91,6 +75,30 @@ def exterior_background(fg: jnp.ndarray) -> jnp.ndarray:
         return new, (new != reach).any()
 
     reach, _ = jax.lax.while_loop(cond, body, (seed, jnp.bool_(True)))
+    return reach
+
+
+def propagate8(seed: jnp.ndarray, domain: jnp.ndarray) -> jnp.ndarray:
+    """8-connected reachability of ``seed`` through ``domain`` (batched
+    fixpoint: 3x3 dilation, then row and column run sweeps)."""
+
+    def dilate8(m):
+        p = jnp.pad(m, ((0, 0), (1, 1), (1, 1)))
+        return jax.lax.reduce_window(
+            p, False, jax.lax.bitwise_or, (1, 3, 3), (1, 1, 1), "VALID"
+        )
+
+    def cond(state):
+        return state[1]
+
+    def body(state):
+        reach, _ = state
+        new = dilate8(reach) & domain
+        new = _axis_sweep(new, domain, axis=reach.ndim - 1)
+        new = _axis_sweep(new, domain, axis=reach.ndim - 2)
+        return new, (new != reach).any()
+
+    reach, _ = jax.lax.while_loop(cond, body, (seed & domain, jnp.bool_(True)))
     return reach
 
 

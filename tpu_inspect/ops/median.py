@@ -3,7 +3,7 @@
 The defect engine's background estimate is ``cv2.medianBlur(gray, 21)``
 (indexing_ui.py:1522-1525) — the single heaviest op in the reference chain.
 OpenCV uses Huang's running-histogram algorithm on the CPU; here the same
-histogram idea is reshaped for the VPU:
+histogram idea is reshaped for data-parallel hardware:
 
 - carry a per-column vertical-window histogram ``[U, W, 256]`` down the rows
   (one lax.scan step per output row: add the entering row, subtract the
@@ -26,23 +26,7 @@ import jax.numpy as jnp
 
 
 def median_blur_u8(x: jnp.ndarray, k: int, rows_per_step: int = 5) -> jnp.ndarray:
-    """Exact k x k uint8 median (cv2.medianBlur parity).
-
-    Dispatches to the Pallas VMEM-resident kernel on TPU when the
-    per-unit histogram state fits comfortably in VMEM; otherwise uses the
-    lax.scan formulation below.
-    """
-    u, h, w = x.shape
-    if k > 1:
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:
-            on_tpu = False
-        # crop + hist state well under VMEM (~16MB): w*256*4 hist + 2*h*w
-        if on_tpu and w * 256 * 4 + 2 * h * w < 8 * 1024 * 1024:
-            from tpu_inspect.ops.median_pallas import median_blur_u8_pallas
-
-            return median_blur_u8_pallas(x, k)
+    """Exact k x k uint8 median (cv2.medianBlur parity)."""
     return _median_blur_u8_scan(x, k, rows_per_step)
 
 

@@ -19,13 +19,12 @@ _FLT_EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, as used by OpenCV
 def histogram_u8(x: jnp.ndarray) -> jnp.ndarray:
     """Per-unit 256-bin histogram. x: [U, H, W] uint8 -> [U, 256] int32.
 
-    Factored as a high/low-nibble outer product contracted on the MXU:
-    hist[v] = sum_px [px>>4 == v>>4] * [px&15 == v&15], so each pixel costs
-    16+16 one-hot compares instead of 256 (the one-hot build fuses into the
-    batched dot). bf16 indicators are exact; f32 accumulation is exact for
-    counts < 2^24 (larger planes fall back to the direct i32 one-hot
-    reduce). Measured 1.19 -> 0.25 ms on the 48-unit workload, and the
-    [U, HW] int32 relayout copy the reduce formulation forced disappears.
+    Factored as a high/low-nibble outer product contracted as a batched
+    matmul: hist[v] = sum_px [px>>4 == v>>4] * [px&15 == v&15], so each
+    pixel costs 16+16 one-hot compares instead of 256. Precision: the 0/1
+    indicators are exact in bf16, and the contraction accumulates in f32
+    (``preferred_element_type``), which is exact for counts < 2^24; planes
+    with 2^24 or more pixels take the direct int32 one-hot reduce instead.
     """
     u = x.shape[0]
     flat = x.reshape(u, -1)
@@ -71,11 +70,9 @@ def otsu_threshold_from_hist(hist: jnp.ndarray, n: int) -> jnp.ndarray:
     global counts (parallel/strips.py)."""
     u_real = hist.shape[0]
     if u_real < 8:
-        # [1]-wide emulated-f64 steps lower to the scalar path and cost
-        # ~48 ms for the 256-step scan (profiled on the whole-image chain);
-        # the same scan over >=8 lanes vectorizes to ~0.3 ms. Pad with
-        # zero histograms: q1 stays 0 there, the epsilon guard holds every
-        # step, and lanes never mix.
+        # pad narrow batches to 8 lanes with zero histograms (q1 stays 0
+        # there, the epsilon guard holds every step, and lanes never mix);
+        # whether this still pays on the GPU has not been timed
         hist = jnp.concatenate(
             [hist, jnp.zeros((8 - u_real, 256), hist.dtype)], axis=0
         )
@@ -87,8 +84,7 @@ def otsu_threshold_from_hist(hist: jnp.ndarray, n: int) -> jnp.ndarray:
     # per-bin operands precomputed vectorized: fl(h_i*scale) and fl(i*p_i)
     # are elementwise f64 multiplies, so hoisting them out of the scan
     # keeps rounding identical while removing the per-step dynamic slice
-    # and two emulated-f64 multiplies from the sequential chain
-    # (measured 0.71 -> 0.34 ms on the 48-unit workload)
+    # and two multiplies from the sequential chain
     p = hist.T.astype(jnp.float64) * scale  # [256, U]
     ip = bins[:, None] * p  # [256, U] == fl(i_f * p_i)
 
@@ -113,9 +109,9 @@ def otsu_threshold_from_hist(hist: jnp.ndarray, n: int) -> jnp.ndarray:
 
     zeros = jnp.zeros((u,), dtype=jnp.float64)
     init = (zeros, zeros, zeros, jnp.zeros((u,), dtype=jnp.int32))
-    # unroll: the 256 tiny [U]-wide f64 steps are dispatch-latency-bound on
-    # TPU (f64 is software-emulated); unrolling fuses 16 steps per loop
-    # iteration without changing the (exactly sequential) summation order
+    # unroll: the 256 tiny [U]-wide f64 steps are latency-bound; unrolling
+    # fuses 16 steps per loop iteration without changing the (exactly
+    # sequential) summation order
     (q1, mu1, max_sigma, max_val), _ = jax.lax.scan(
         step,
         init,

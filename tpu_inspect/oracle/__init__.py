@@ -1,4 +1,4 @@
-"""OpenCV/numpy oracle: the bit-exact ground truth for the TPU engine.
+"""OpenCV/numpy oracle: the bit-exact ground truth for the device engine.
 
 The reference tool delegates all pixel math to OpenCV C++ through cv2; this
 package re-states that exact chain as pure, Qt-free functions over numpy

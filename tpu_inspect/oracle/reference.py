@@ -1,8 +1,8 @@
 """Qt-free numpy/OpenCV restatement of the reference inspection chain.
 
-Every function documents the reference call sites (file:line into
-/root/reference/) whose observable behavior it reproduces. This module is the
-oracle: the JAX/Pallas engine must match it bit-for-bit.
+Every function documents the reference call sites (file:line into the
+reference repository) whose observable behavior it reproduces. This module
+is the oracle: the JAX engine must match it bit-for-bit.
 """
 
 from __future__ import annotations

@@ -1,22 +1,24 @@
-"""Multi-chip scaling: unit-batch and image-batch data parallelism.
+"""Multi-card scaling: unit-batch and image-batch data parallelism.
 
 The reference has no distributed code at all (SURVEY.md section 2b): it
-loops units on one CPU thread (indexing_ui.py:2268, :1669). The TPU-native
-scaling axes are
+loops units on one CPU thread (indexing_ui.py:2268, :1669). The scaling
+axes are
 
 - the **unit batch**: every per-unit pipeline stage is independent, so
-  sharding the leading [units] dimension across chips with jax.sharding
-  turns the whole inspection into pure data parallelism — XLA inserts zero
-  collectives on the hot path, and only the tiny per-unit outputs
-  (verdicts, centroids, shifts) are gathered at the end over ICI;
+  sharding the leading [units] dimension across cards with jax.sharding
+  turns the whole inspection into pure data parallelism — zero collectives
+  on the hot path, and only the tiny per-unit outputs (verdicts,
+  centroids, shifts) are gathered at the end;
 - the **image batch** (BASELINE.json config 5, multi-image streaming): a 2D
   ("image", "unit") mesh shards a [images, units, H, W] crop batch both
-  ways — each chip gathers crops from its local frame and inspects its own
+  ways — each card gathers crops from its local frame and inspects its own
   unit slice.
 
-Both paths use jax.experimental.shard_map rather than GSPMD auto-sharding:
-the Pallas kernels are opaque custom calls that GSPMD cannot partition, but
-under shard_map every chip simply invokes them on its local slice.
+Both paths use shard_map rather than GSPMD auto-sharding: each card runs
+the single-device pipeline, data-dependent while loops included, on its
+local slice, and the mesh states the data parallelism outright. On GPUs
+XLA hands the output gathers to NCCL; the four cards of one host are
+joined all to all by NVLink, so the mesh shape follows the algorithm alone.
 
 Both paths run the REAL workflow: exclusion zones (rects + circles) and
 per-unit centroid alignment shifts (indexing_ui.py:2291-2338) are threaded
@@ -70,8 +72,8 @@ def pad_units(n: int, n_shards: int) -> int:
 
 def _inspect_shard(crops, rects, circles, ref_centroids, ref_valid, *, seg,
                    defect, is_reference):
-    """Per-shard pipeline body: runs on each chip's local unit slice, so the
-    Pallas kernels see ordinary single-device [U/n, H, W] batches."""
+    """Per-shard pipeline body: runs on each card's local unit slice, so
+    every stage sees an ordinary single-device [U/n, H, W] batch."""
     masks, sums, has_fg, shifts = _segment_device(
         crops,
         rects,
@@ -101,11 +103,8 @@ def _sharded_inspect(
     is_reference: bool,
     mesh: Mesh,
 ):
-    # shard_map (not GSPMD auto-sharding): each chip runs the full pipeline
-    # on its local unit slice. This is what lets the Mosaic custom calls
-    # (median/CC/flood/morph kernels) run under multi-chip execution — GSPMD
-    # cannot partition an opaque custom call, but per-shard invocation needs
-    # no partitioning at all. Pure data parallelism: zero collectives.
+    # shard_map (not GSPMD auto-sharding): each card runs the full pipeline
+    # on its local unit slice. Pure data parallelism: zero collectives.
     u = P("unit")
     body = functools.partial(
         _inspect_shard, seg=seg, defect=defect, is_reference=is_reference
@@ -143,7 +142,7 @@ def inspect_units_sharded(
     is_reference: bool = True,
     mesh: Mesh | None = None,
 ) -> tuple[SegmentationResult, InspectionResult]:
-    """Inspect a unit batch sharded across chips — the full workflow
+    """Inspect a unit batch sharded across cards — the full workflow
     (exclusion zones + centroid-alignment shifts included), matching
     engine.inspect_units semantics with the unit axis distributed.
 
@@ -220,10 +219,10 @@ def _sharded_image_batch(
     unit_hw: tuple[int, int],
     mesh: Mesh,
 ):
-    """One shard_map over the 2D mesh: each chip holds one image row slice,
+    """One shard_map over the 2D mesh: each card holds one image row slice,
     gathers the (cheap) full crop set from its local frame, and runs the
-    pipeline on its own unit slice — Pallas kernels run per shard, and the
-    only cross-chip traffic is the output gather."""
+    pipeline on its own unit slice; the only cross-card traffic is the
+    output gather."""
     from tpu_inspect.imageio import gather_crops
 
     n_unit = mesh.shape["unit"]

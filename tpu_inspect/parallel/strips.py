@@ -7,16 +7,13 @@ ROWS are the shard axis: every raster stage of the segmentation/defect
 chain has a bounded vertical dependency cone (gaussian r, adaptive
 block//2, morph reach, ROI erode n, median r), so each device owns one
 strip of rows and refreshes just its halo rows from its neighbors
-(``ppermute``) before each stage — the cross-chip analogue of the
-single-chip strip-tiled kernels (flood_pallas.propagate_pallas_tiled,
-median_pallas.median_residual_mask_tiled). The global steps become
-collectives:
+(``ppermute``) before each stage. The global steps become collectives:
 
 - Otsu's histogram is a ``psum`` (the f64 recurrence then runs replicated
   on the identical global counts — exact);
 - the border-seeded hole-fill flood alternates local sweep fixpoints with
   one-row halo exchanges until a ``psum``'d change flag clears — global
-  convergence, exactly like the strip-tiled kernel's down/up sweeps;
+  convergence;
 - the defect chain's component analytics (largest-8CC ROI selection,
   Green's contour filter) run replicated after an ``all_gather`` of the
   two raster planes they need; the decomposable stages (the (2n+1)^2
@@ -152,9 +149,7 @@ def _sharded_exterior(fg_l, *, n: int, hs: int, h: int, w: int):
     """Background 4-connected to the GLOBAL image border, strip-sharded.
 
     ``fg_l``: this strip's foreground mask. Local sweep fixpoints alternate
-    with one-row halo exchanges until no strip grows (psum'd flag) — the
-    flood analogue of the strip-tiled kernel's down/up sweep pairs
-    (ops/flood_pallas.py)."""
+    with one-row halo exchanges until no strip grows (psum'd flag)."""
     idx = jax.lax.axis_index(_AXIS)
     row_g = idx * hs + jnp.arange(hs, dtype=jnp.int32)[:, None]
     col = jnp.arange(w, dtype=jnp.int32)[None, :]

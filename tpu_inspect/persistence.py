@@ -4,8 +4,8 @@ Schema parity with the reference:
 - v2 export: ``{version: 2, metadata, boxes, exclusions, exclusion_alignment}``
   (indexing_ui.py:2732-2783).
 - import accepts a v2 dict, a legacy dict without ``version``, or a bare list
-  of boxes (indexing_ui.py:2844-2889). The checked-in sample
-  /root/reference/grid.json is the legacy-dict flavor.
+  of boxes (indexing_ui.py:2844-2889). The reference's checked-in sample
+  grid.json is the legacy-dict flavor.
 - masks+CSV export writes ``mask_%04d.png`` per unit plus a
   ``masks_summary.csv`` with columns index,mask,area,centroid_x,centroid_y
   (indexing_ui.py:2703-2730).

@@ -1,7 +1,7 @@
 """Streaming multi-image inline inspection (BASELINE.json config 5).
 
 The reference inspects one image at a time behind UI buttons; production
-deployment is a camera stream. This module pipelines host->TPU transfer
+deployment is a camera stream. This module pipelines host->device transfer
 with device compute using JAX's async dispatch: image i+1 is uploaded and
 its pipeline dispatched while image i is still computing, so steady-state
 throughput is bounded by device time, not transfer latency.
@@ -169,7 +169,7 @@ def stream_inspect_sharded(
     mesh=None,
     fetch_masks: bool = False,
 ) -> Iterator[StreamResult]:
-    """Multi-chip streaming over a 2D ("image", "unit") mesh (BASELINE.json
+    """Multi-card streaming over a 2D ("image", "unit") mesh (BASELINE.json
     config 5): frames are grouped into batches of the mesh's image-axis size
     and each batch is inspected with both axes sharded
     (parallel.mesh.inspect_image_batch_sharded). A ragged final batch is

@@ -3,7 +3,7 @@
 Generates images that structurally resemble the reference workload: a bright
 background with a regular grid of darker rounded mold surfaces, optional
 bright/dark foreign-material specks, and sensor noise. The sample grid in
-/root/reference/grid.json (4096x3000, 48 units of 316x315) is reproducible
+the reference's grid.json (4096x3000, 48 units of 316x315) is reproducible
 via :func:`sample_grid_params`.
 """
 
@@ -16,7 +16,7 @@ from tpu_inspect.geometry import grid_boxes
 
 
 def sample_grid_params() -> GridParams:
-    """The checked-in sample workload (/root/reference/grid.json metadata)."""
+    """The reference's sample workload (its grid.json metadata)."""
     return GridParams(
         base_unit=(251, 232, 316, 315),
         units_x=4,
