@@ -26,7 +26,7 @@ analysis of the 48-unit step and the card's name and power limit. The last
 line is one JSON object naming the device. Without a GPU it exits non-zero
 and prints no result.
 
-Usage: python chip_smoke.py [--multi] [--runs N]
+Usage: python chip_smoke.py [--multi]
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tools"))
 
 import make_golden as mg  # noqa: E402  (the cases and their records)
+
+RUNS = 3  # steady-state calls per phase
 
 
 class ParityError(AssertionError):
@@ -139,7 +141,7 @@ def memory_analysis(image, wl, seg, defect) -> None:
     ))
 
 
-def run_single(runs: int = 3, expect=None, analyse_memory: bool = True):
+def run_single(runs: int = RUNS, expect=None, analyse_memory: bool = True):
     """The one-card phases; raises ParityError on the first mismatch."""
     import jax
     import jax.numpy as jnp
@@ -216,7 +218,7 @@ def run_single(runs: int = 3, expect=None, analyse_memory: bool = True):
     report("stream", first, times, per=len(frames))
 
 
-def run_multi(devices, runs: int = 3):
+def run_multi(devices, runs: int = RUNS):
     """The multi-card paths on ``devices`` (four cards), each against the
     one-card result computed in this process."""
     import jax
@@ -341,8 +343,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--multi", action="store_true",
                     help="run only the four-card mesh paths")
-    ap.add_argument("--runs", type=int, default=3,
-                    help="steady-state calls per phase")
     args = ap.parse_args(argv)
 
     import jax
@@ -363,9 +363,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     try:
         if args.multi:
-            run_multi(devices, runs=args.runs)
+            run_multi(devices)
         else:
-            run_single(runs=args.runs)
+            run_single()
     except ParityError as e:
         print(f"chip_smoke: parity failed: {e}", file=sys.stderr)
         return 1

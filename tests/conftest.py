@@ -33,13 +33,16 @@ def rng():
 @pytest.fixture(scope="session")
 def reference_dir():
     """Checkout of the reference tool (its grid.json and segmentation.py),
-    named by TPU_INSPECT_REFERENCE_DIR; skips the test when absent."""
+    named by TPU_INSPECT_REFERENCE_DIR. Skips the test when the variable is
+    unset, and fails it when the variable names no such checkout."""
     import pathlib
 
     d = os.environ.get("TPU_INSPECT_REFERENCE_DIR", "")
-    if not d or not (pathlib.Path(d) / "grid.json").is_file():
+    if not d:
         pytest.skip("reference tool checkout not available "
                     "(set TPU_INSPECT_REFERENCE_DIR)")
+    if not (pathlib.Path(d) / "grid.json").is_file():
+        pytest.fail(f"TPU_INSPECT_REFERENCE_DIR={d} holds no grid.json")
     return pathlib.Path(d)
 
 

@@ -1,9 +1,8 @@
-"""First-party xplane trace reader (tpu_inspect.utils.xprof).
+"""Trace reduction of tpu_inspect.utils.xprof (the `cli profile` command).
 
-Generates a real jax.profiler trace on the test platform and checks the
-wire-format parser reads its planes/lines/metadata; device-op aggregation
-is exercised structurally (CPU traces carry no "XLA Ops" device line, so
-the device-plane queries must return {} rather than garbage).
+Reads a real jax.profiler trace taken on the test platform, maps a
+compiled step's HLO op names to the engine's named scopes, and reduces
+hand-made device events to busy time, idle gaps and per-stage totals.
 """
 
 import numpy as np
@@ -24,75 +23,106 @@ def trace_dir(tmp_path_factory):
     with jax.profiler.trace(d):
         for _ in range(3):
             float(f(x))
-    files = xprof.find_xplane_files(d)
-    if not files:
+    if not xprof.find_xplane_files(d):
         pytest.skip("platform produced no xplane trace")
     return d
 
 
-def test_parses_planes_and_lines(trace_dir):
-    files = xprof.find_xplane_files(trace_dir)
-    planes = xprof.load_xspace(files[0])
-    assert planes, "no planes parsed"
-    named = [p for p in planes if p.name]
-    assert named, "plane names not decoded"
-    # some plane must carry events with positive durations + resolvable names
-    total_events = 0
-    for p in planes:
-        for line in p.lines:
-            for mid, dur in line.events:
-                total_events += 1
-                assert dur >= 0
-                # metadata ids resolve through the map when present
-                if p.event_names:
-                    assert isinstance(
-                        p.event_names.get(mid, ""), str
-                    )
-    assert total_events > 0, "no events parsed from a real trace"
+def test_reads_host_plane_events(trace_dir):
+    evs = xprof.trace_events(trace_dir, plane="/host:", line="")
+    assert evs, "no events read from a real trace"
+    assert all(isinstance(name, str) and name for name, _, _, _ in evs)
+    assert all(dur >= 0 for _, _, _, dur in evs)
+    assert any(dur > 0 for _, _, _, dur in evs)
 
 
-def test_host_plane_aggregation(trace_dir):
-    # host planes: every line (per-thread) aggregated by event name
-    totals = xprof.device_op_totals(
-        trace_dir, plane_substr="/host:", line_label=None
-    )
-    if totals:  # present on CPU platforms
-        assert all(ms >= 0 for ms in totals.values())
-        assert any(ms > 0 for ms in totals.values())
-
-
-def test_device_query_shape(trace_dir):
-    # On CPU there is no device plane: the device query must be empty,
-    # never wrong. On a GPU it returns per-op totals.
-    totals = xprof.device_op_totals(trace_dir)
-    assert isinstance(totals, dict)
-    devplat = jax.devices()[0].platform
-    if devplat == "cpu":
-        assert totals == {}
+def test_device_query(trace_dir):
+    # the first GPU's stream lines: none on the CPU, kernels on a GPU
+    evs = xprof.trace_events(trace_dir)
+    if jax.devices()[0].platform == "cpu":
+        assert evs == []
     else:
-        assert totals and xprof.total_device_ms(trace_dir) > 0
-    ranked = xprof.top_ops(trace_dir, k=5, iters=3)
-    assert len(ranked) <= 5
+        assert evs and xprof.busy_ns(evs)[0] > 0
 
 
-def test_varint_and_fields_roundtrip():
-    # hand-encode a tiny message: field1 varint 300, field2 bytes "ab"
-    buf = bytes([0x08, 0xAC, 0x02, 0x12, 0x02, 0x61, 0x62])
-    got = list(xprof._fields(buf))
-    assert got[0] == (1, 0, 300)
-    assert got[1] == (2, 2, b"ab")
+def test_no_trace_reads_empty(tmp_path):
+    assert xprof.find_xplane_files(str(tmp_path)) == []
+    assert xprof.trace_events(str(tmp_path)) == []
 
 
-def test_malformed_varint_raises():
-    with pytest.raises(ValueError):
-        list(xprof._fields(bytes([0x08] + [0x80] * 11)))
+def test_hlo_names_map_to_engine_scopes():
+    from tpu_inspect import engine
+    from tpu_inspect.config import DefectParams, GridParams, SegmentationParams
+    from tpu_inspect.geometry import grid_origins
+    from tpu_inspect.synthetic import make_mold_image
+
+    g = GridParams(base_unit=(4, 4, 40, 36), units_x=2)
+    img = make_mold_image(g, (48, 96), seed=1)
+    args = (
+        jnp.asarray(img), jnp.asarray(grid_origins(g)),
+        jnp.asarray([[2, 2, 5, 4]], jnp.int32), jnp.zeros((0, 3), jnp.int32),
+        jnp.zeros((2, 2)), jnp.zeros((2,), bool),
+    )
+    kw = dict(
+        seg=SegmentationParams().validated(),
+        defect=DefectParams().validated(), is_reference=True,
+        unit_hw=(36, 40), with_defects=True,
+    )
+    compiled = engine._inspect_image_device.lower(*args, **kw).compile()
+    names = xprof.hlo_op_names(compiled.as_text())
+    stages = {xprof.stage_of(op) for op in names.values()}
+    for scope in ("gather", "gauss", "thresh", "morph", "holefill",
+                  "seg_centroid", "exclusions", "roi_erode", "roi_largest",
+                  "median_residual", "blob_filter"):
+        assert scope in stages, scope
+    # the profiled executable is the program the engine runs
+    jax.tree.map(np.testing.assert_array_equal, compiled(*args),
+                 engine._inspect_image_device(*args, **kw))
 
 
-def test_truncated_file_raises_cleanly():
-    # a length-delimited field whose declared size overruns the buffer
-    bad = bytes([0x0A, 0x10, 0x01, 0x02])  # field1, len16, only 2 bytes
-    with pytest.raises(ValueError):
-        list(xprof._fields(bad))
-    # varint cut mid-byte-sequence
-    with pytest.raises(ValueError):
-        list(xprof._fields(bytes([0x08, 0x80])))
+@pytest.mark.parametrize("op, stage", [
+    ("jit(f)/defect_roi/roi_largest/while/body/min", "roi_largest"),
+    ("jit(f)/blob_filter/cand_open/reduce", "cand_open"),
+    ("jit(f)/broadcast", "other"),
+])
+def test_stage_is_innermost_scope(op, stage):
+    assert xprof.stage_of(op) == stage
+
+
+def test_busy_time_and_idle_gaps():
+    evs = [  # (kernel, hlo op, start ns, duration ns)
+        ("a", "", 0.0, 100e3),
+        ("b", "", 50e3, 100e3),   # overlaps a
+        ("c", "", 200e3, 20e3),   # 50 us gap after b
+        ("d", "", 225e3, 10e3),   # 5 us gap: below the threshold
+    ]
+    busy, window = xprof.busy_ns(evs)
+    assert (busy, window) == (180e3, 235e3)
+    gaps = xprof.idle_gaps(evs)
+    assert len(gaps) == 1
+    np.testing.assert_allclose(gaps[0][0], 50e3)
+    assert gaps[0][1:] == ("b", "c")
+
+
+def test_no_events_reduce_to_nothing():
+    assert xprof.busy_ns([]) == (0.0, 0.0)
+    assert xprof.idle_gaps([]) == []
+    assert xprof.stage_totals([], {}) == ({}, {}, 0)
+
+
+def test_stage_totals():
+    names = {
+        "fusion.3": "jit(f)/defect_roi/roi_largest/while/body/min",
+        "loop_reduce_fusion_1": "jit(f)/median_residual/scan/add",
+    }
+    evs = [  # kernels map by their hlo_op stat, else by their own name
+        ("loop_fusion", "fusion.3", 0.0, 10.0),
+        ("loop_fusion", "fusion.3", 20.0, 30.0),
+        ("loop_reduce_fusion_1", "", 60.0, 5.0),
+        ("memcpy", "", 70.0, 1.0),
+    ]
+    by_stage, by_kernel, unmapped = xprof.stage_totals(evs, names)
+    assert by_stage == {"roi_largest": [40.0, 2],
+                        "median_residual": [5.0, 1], "other": [1.0, 1]}
+    assert by_kernel["loop_fusion [roi_largest]"] == [40.0, 2]
+    assert unmapped == 1
